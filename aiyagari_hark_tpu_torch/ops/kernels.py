@@ -1,0 +1,392 @@
+"""The two hand-written CUDA fixed-point kernels, their plain PyTorch
+versions, the build and loader, and the launch counters.
+
+``egm_policy_grid`` replaces the TPU kernels ``egm_policy_pallas`` and
+``egm_policy_pallas_grid``; ``stationary_lottery_grid`` replaces
+``stationary_dense_pallas`` and ``stationary_dense_pallas_grid``
+(``aiyagari_hark_tpu/ops/pallas_kernels.py``).  Each takes a leading lane
+axis ``C``; a single cell is ``C = 1``.
+
+Dispatch: a wrapper runs its plain version only for tensors on the CPU.
+For CUDA tensors it launches its kernel or raises -- there is no fallback.
+The kernels are compiled from ``csrc/`` by ``nvcc`` for ``sm_90a`` at
+first use, one shared library per source (built in parallel), into
+``_build/`` beside this file, and bound with ``ctypes``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+from .interp import interp1d_rowwise
+from .utility import inverse_marginal_utility, marginal_utility
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+SOURCES = {
+    "egm_policy_grid": "egm_policy_grid.cu",
+    "stationary_lottery_grid": "stationary_lottery_grid.cu",
+}
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
+              "-Xcompiler", "-fPIC")
+# Shared memory one block may use on an H100 (232,448 bytes).
+MAX_SHARED_BYTES = 232448
+
+# Launch counters: one plain integer per kernel, advanced only where the
+# wrapper launches its kernel (never by a plain version).
+LAUNCHES = {name: 0 for name in SOURCES}
+
+_LIBS: dict = {}
+BUILD_LOGS: dict = {}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# Build and load.
+# ---------------------------------------------------------------------------
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (PATH, CUDA_HOME): the CUDA "
+                           "kernels cannot be built")
+    return path
+
+
+def _digest(name: str) -> str:
+    h = hashlib.sha256()
+    for f in (SOURCES[name], "common.cuh"):
+        h.update((_CSRC / f).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _bind(lib, name: str) -> None:
+    vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    if name == "egm_policy_grid":
+        for sfx in ("f32", "f64"):
+            fn = getattr(lib, f"egm_policy_grid_{sfx}")
+            fn.argtypes = [vp] * 10 + [ci, ci, ci, cd, ci, ci, vp]
+            fn.restype = ci
+        lib.egm_policy_grid_smem_bytes.argtypes = [ci, ci, ci]
+        lib.egm_policy_grid_smem_bytes.restype = ctypes.c_ulonglong
+    else:
+        for sfx in ("f32", "f64"):
+            fn = getattr(lib, f"stationary_lottery_grid_{sfx}")
+            fn.argtypes = [vp] * 9 + [ci, ci, ci, cd, ci, ci, vp]
+            fn.restype = ci
+        lib.stationary_lottery_grid_max_states.argtypes = []
+        lib.stationary_lottery_grid_max_states.restype = ci
+        lib.stationary_lottery_grid_scratch_elems.argtypes = [ci, ci]
+        lib.stationary_lottery_grid_scratch_elems.restype = \
+            ctypes.c_ulonglong
+
+
+def build_libraries(names=tuple(SOURCES)) -> float:
+    """Compile (one ``nvcc`` per source, all started together) and load
+    the named kernels' libraries; a library whose sources and flags are
+    unchanged is loaded from ``_build/``.  Returns the seconds taken.
+    Raises ``RuntimeError`` with the compiler's output if a build fails."""
+    t0 = time.perf_counter()
+    todo = [n for n in names if n not in _LIBS]
+    if not todo:
+        return 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for name in todo:
+        so = BUILD_DIR / f"{name}-{_digest(name)}.so"
+        if so.exists():
+            continue
+        tmp = BUILD_DIR / f".{so.name}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp),
+               str(_CSRC / SOURCES[name])]
+        jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True),
+                      tmp, so)
+    failed = []
+    for name, (proc, tmp, so) in jobs.items():
+        out, _ = proc.communicate()
+        BUILD_LOGS[name] = out
+        if proc.returncode != 0:
+            failed.append(f"{name} (nvcc exit {proc.returncode}):\n{out}")
+        else:
+            os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
+    for name in todo:
+        lib = ctypes.CDLL(str(BUILD_DIR / f"{name}-{_digest(name)}.so"))
+        _bind(lib, name)
+        _LIBS[name] = lib
+    return time.perf_counter() - t0
+
+
+def _library(name: str):
+    if name not in _LIBS:
+        build_libraries((name,))
+    return _LIBS[name]
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _stream(device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _check(name: str, tensors: dict, dtype, device) -> None:
+    for key, t in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{name}: {key} is on {t.device}, expected "
+                             f"{device}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name}: {key} has dtype {t.dtype}, expected "
+                             f"{dtype}")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {device}")
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"{name}: dtype must be float32 or float64, got "
+                         f"{dtype}")
+
+
+# ---------------------------------------------------------------------------
+# EGM policy fixed point.
+# ---------------------------------------------------------------------------
+
+def egm_step_lanes(m_k, c_k, a, levels, P, scalars):
+    """One EGM backward step for every lane: knots ``m_k``/``c_k``
+    [C, N, A+1], ``a`` [C, A], ``levels`` [C, N], ``P`` [C, N, N],
+    ``scalars`` [C, 5] = (R, W, beta, crra, borrow_limit).
+
+    The expectation over next states is summed in state order, each
+    product rounded before its sum -- the order the kernel uses."""
+    R, W, beta, crra, b = (scalars[:, i, None, None] for i in range(5))
+    n = levels.shape[1]
+    m_next = R * a[:, None, :] + W * levels[:, :, None]        # [C, N', A]
+    c_next = interp1d_rowwise(m_next, m_k, c_k)
+    vp = marginal_utility(c_next, crra)                         # [C, N', A]
+    e = P[:, :, 0, None] * vp[:, None, 0, :]                    # [C, N, A]
+    for sp in range(1, n):
+        e = e + P[:, :, sp, None] * vp[:, None, sp, :]
+    c_now = inverse_marginal_utility(beta * R * e, crra)
+    m_now = a[:, None, :] + c_now
+    eps = torch.full_like(c_now[:, :, :1], 1e-7)
+    return (torch.cat([b + eps, m_now], dim=-1),
+            torch.cat([eps, c_now], dim=-1))
+
+
+def egm_policy_grid_plain(m0, c0, a_grid, levels, P, scalars, tol: float,
+                          max_iter: int = 3000, accel_every: int = 32):
+    """Plain PyTorch version of the EGM kernel: ``egm_step_lanes`` under
+    the same accelerated loop (``models.household.
+    accelerated_policy_fixed_point``), lanes batched with per-lane active
+    masks.  Returns (m [C,N,K], c [C,N,K], iters [C] int32, diff [C])."""
+    from ..models.household import (HouseholdPolicy,
+                                    accelerated_policy_fixed_point)
+
+    pol, it, diff, _ = accelerated_policy_fixed_point(
+        lambda p: HouseholdPolicy(*egm_step_lanes(p.m_knots, p.c_knots,
+                                                  a_grid, levels, P,
+                                                  scalars)),
+        HouseholdPolicy(m0, c0), tol, max_iter, accel_every)
+    return pol.m_knots, pol.c_knots, it, diff
+
+
+def egm_policy_grid(m0, c0, a_grid, levels, P, scalars, tol: float,
+                    max_iter: int = 3000, accel_every: int = 32):
+    """Batched EGM policy fixed points, one lane per thread block.
+
+    Args: ``m0``/``c0`` [C, N, A+1] initial knots, ``a_grid`` [C, A],
+    ``levels`` [C, N], ``P`` [C, N, N], ``scalars`` [C, 5] packed
+    (R, W, beta, crra, borrow_limit).  Returns (m [C, N, A+1],
+    c [C, N, A+1], iters [C] int32, diff [C]); the status is rebuilt
+    from (iters, diff) by ``classify_fixed_point_exit``."""
+    dev, dt = m0.device, m0.dtype
+    C, N, K = m0.shape
+    A = K - 1
+    if c0.shape != m0.shape or a_grid.shape != (C, A) \
+            or levels.shape != (C, N) or P.shape != (C, N, N) \
+            or scalars.shape != (C, 5):
+        raise ValueError(
+            f"egm_policy_grid: shapes m0 {tuple(m0.shape)}, c0 "
+            f"{tuple(c0.shape)}, a {tuple(a_grid.shape)}, levels "
+            f"{tuple(levels.shape)}, P {tuple(P.shape)}, scalars "
+            f"{tuple(scalars.shape)} do not agree")
+    _check("egm_policy_grid", dict(m0=m0, c0=c0, a_grid=a_grid,
+                                   levels=levels, P=P, scalars=scalars),
+           dt, dev)
+    if dev.type == "cpu":
+        return egm_policy_grid_plain(m0, c0, a_grid, levels, P, scalars,
+                                     tol, max_iter, accel_every)
+    lib = _library("egm_policy_grid")
+    f64 = dt == torch.float64
+    smem = int(lib.egm_policy_grid_smem_bytes(N, A, int(f64)))
+    if smem > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"egm_policy_grid: N={N} labor states x A={A} assets needs "
+            f"{smem} bytes of shared memory per lane in {dt}, above the "
+            f"{MAX_SHARED_BYTES} a block may use")
+    args = [t.contiguous() for t in (m0, c0, a_grid, levels, P, scalars)]
+    m = torch.empty_like(args[0])
+    c = torch.empty_like(args[0])
+    iters = torch.empty((C,), dtype=torch.int32, device=dev)
+    diff = torch.empty((C,), dtype=dt, device=dev)
+    if C == 0:
+        return m, c, iters, diff
+    fn = lib.egm_policy_grid_f64 if f64 else lib.egm_policy_grid_f32
+    rc = fn(*(_ptr(t) for t in args), _ptr(m), _ptr(c), _ptr(iters),
+            _ptr(diff), C, N, A, float(tol), int(max_iter),
+            int(accel_every), _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"egm_policy_grid: kernel launch failed with "
+                           f"CUDA error {rc}")
+    LAUNCHES["egm_policy_grid"] += 1
+    return m, c, iters, diff
+
+
+# ---------------------------------------------------------------------------
+# Stationary-distribution fixed point.
+# ---------------------------------------------------------------------------
+
+def lottery_targets(idx: torch.Tensor, weight: torch.Tensor):
+    """The lottery's contributions in the order the JAX scatter adds
+    them: for each lane and labor state, every left-neighbour share in
+    source order, then every right-neighbour share in source order.
+    Returns (target [C, N, 2D], source row [C, N, 2D], coefficient
+    [C, N, 2D])."""
+    C, D, N = idx.shape
+    tgt = torch.cat([idx, idx + 1], dim=1).transpose(1, 2)
+    w = weight.transpose(1, 2)
+    coef = torch.cat([1.0 - w, w], dim=-1)
+    src = torch.arange(D, device=idx.device).repeat(2)
+    return tgt, src.expand(C, N, 2 * D), coef
+
+
+def lottery_csr(idx: torch.Tensor, weight: torch.Tensor):
+    """The lottery grouped by target, stable in contribution order: a
+    CSR per (lane, labor state).  Returns (start [C, N, D+1] int32,
+    source row [C, N, 2D] int32, coefficient [C, N, 2D])."""
+    C, D, N = idx.shape
+    tgt, src, coef = lottery_targets(idx, weight)
+    order = torch.argsort(tgt, dim=-1, stable=True)
+    tgt_sorted = torch.gather(tgt, -1, order)
+    bounds = torch.arange(D + 1, device=idx.device, dtype=tgt.dtype)
+    start = torch.searchsorted(tgt_sorted.contiguous(),
+                               bounds.expand(C, N, D + 1).contiguous())
+    return (start.to(torch.int32).contiguous(),
+            torch.gather(src, -1, order).to(torch.int32).contiguous(),
+            torch.gather(coef, -1, order).contiguous())
+
+
+def push_forward_lanes(dist, tgt_flat, src_flat, coef_flat, P):
+    """One push-forward step for every lane: scatter the mass along the
+    lottery (on the CPU accumulated in contribution order; on the card in
+    atomic order), then mix labor states in state order.  ``dist``
+    [C, D, N], ``P`` [C, N, N]."""
+    C, D, N = dist.shape
+    vals = dist.reshape(-1)[src_flat] * coef_flat
+    moved = torch.zeros(C * D * N, dtype=dist.dtype, device=dist.device)
+    # on the CPU index_add_ adds in index order (the JAX scatter's order);
+    # index_put_(accumulate=True) may not, under several threads
+    moved.index_add_(0, tgt_flat, vals)
+    moved = moved.reshape(C, D, N)
+    out = moved[:, :, 0, None] * P[:, None, 0, :]
+    for n in range(1, N):
+        out = out + moved[:, :, n, None] * P[:, None, n, :]
+    return out
+
+
+def stationary_lottery_grid_plain(idx, weight, P, dist0, tol: float,
+                                  max_iter: int = 20000,
+                                  accel_every: int = 64):
+    """Plain PyTorch version of the distribution kernel:
+    ``push_forward_lanes`` under the same accelerated loop
+    (``models.household.accelerated_distribution_fixed_point``: Aitken
+    extrapolation, 512-step stall exit, best certified iterate), lanes
+    batched with per-lane active masks.  Returns (dist [C, D, N],
+    iters [C] int32, diff [C]); ``diff`` is the best residual, or the
+    last one when that was non-finite."""
+    from ..models.household import distribution_loop
+
+    C, D, N = dist0.shape
+    tgt, src, coef = lottery_targets(idx, weight)
+    lane = torch.arange(C, device=dist0.device)[:, None, None]
+    state = torch.arange(N, device=dist0.device)[None, :, None]
+    tgt_flat = ((lane * D + tgt) * N + state).reshape(-1)
+    src_flat = ((lane * D + src) * N + state).reshape(-1)
+    coef_flat = coef.reshape(-1)
+    best_dist, it, best, last = distribution_loop(
+        lambda d: push_forward_lanes(d, tgt_flat, src_flat, coef_flat, P),
+        dist0, tol, max_iter, accel_every)
+    return best_dist, it, torch.where(torch.isfinite(last), best, last)
+
+
+def stationary_lottery_grid(idx, weight, P, dist0, tol: float,
+                            max_iter: int = 20000, accel_every: int = 64):
+    """Batched stationary distributions of the Young-lottery operator,
+    one lane per thread block.
+
+    Args: ``idx`` [C, D, N] left-neighbour index and ``weight`` [C, D, N]
+    right-neighbour share (``WealthTransition``), ``P`` [C, N, N],
+    ``dist0`` [C, D, N].  Returns (dist [C, D, N], iters [C] int32,
+    diff [C]); the status is rebuilt from (iters, diff)."""
+    dev, dt = dist0.device, dist0.dtype
+    C, D, N = dist0.shape
+    if idx.shape != dist0.shape or weight.shape != dist0.shape \
+            or P.shape != (C, N, N):
+        raise ValueError(
+            f"stationary_lottery_grid: shapes idx {tuple(idx.shape)}, "
+            f"weight {tuple(weight.shape)}, P {tuple(P.shape)}, dist0 "
+            f"{tuple(dist0.shape)} do not agree")
+    _check("stationary_lottery_grid", dict(weight=weight, P=P, dist0=dist0),
+           dt, dev)
+    if idx.device != dev:
+        raise ValueError(f"stationary_lottery_grid: idx is on {idx.device}, "
+                         f"expected {dev}")
+    if dev.type == "cpu":
+        return stationary_lottery_grid_plain(idx, weight, P, dist0, tol,
+                                             max_iter, accel_every)
+    lib = _library("stationary_lottery_grid")
+    max_n = int(lib.stationary_lottery_grid_max_states())
+    if N > max_n:
+        raise ValueError(f"stationary_lottery_grid: N={N} labor states "
+                         f"(D={D}) exceeds the kernel's {max_n}")
+    start, src, coef = lottery_csr(idx, weight)
+    P = P.contiguous()
+    dist0 = dist0.contiguous()
+    dist = torch.empty_like(dist0)
+    iters = torch.empty((C,), dtype=torch.int32, device=dev)
+    diff = torch.empty((C,), dtype=dt, device=dev)
+    if C == 0:
+        return dist, iters, diff
+    per_lane = int(lib.stationary_lottery_grid_scratch_elems(D, N))
+    scratch = torch.empty((C, per_lane), dtype=dt, device=dev)
+    f64 = dt == torch.float64
+    fn = (lib.stationary_lottery_grid_f64 if f64
+          else lib.stationary_lottery_grid_f32)
+    rc = fn(_ptr(start), _ptr(src), _ptr(coef), _ptr(P), _ptr(dist0),
+            _ptr(dist), _ptr(iters), _ptr(diff), _ptr(scratch), C, D, N,
+            float(tol), int(max_iter), int(accel_every), _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"stationary_lottery_grid: kernel launch failed "
+                           f"with CUDA error {rc}")
+    LAUNCHES["stationary_lottery_grid"] += 1
+    return dist, iters, diff
