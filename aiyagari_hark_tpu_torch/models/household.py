@@ -1,13 +1,15 @@
 """Household problem on the (asset x labor-state) space: the EGM step,
 its infinite-horizon fixed point, and the stationary wealth distribution
-(port of the reference path of ``aiyagari_hark_tpu/models/household.py``).
+(port of the reference and fused paths of
+``aiyagari_hark_tpu/models/household.py``).
 
 Math contract:
     vP'(a_i, s') = u'(c_next(R a_i + W l_{s'}))
     EndOfPrdvP(a_i, s) = beta * R * sum_{s'} P[s,s'] vP'(a_i, s')
     c = EndOfPrdvP^(-1/crra);  m = a + c;  prepend the constraint knot
 iterated to the infinite-horizon fixed point.  A policy is a pair of knot
-arrays [N, A+1].
+arrays [N, A+1]; on a compact grid the analytic tail appends two knots,
+[N, A+3].
 
 Batching: every function takes either one cell (the JAX layouts: knots
 [N, A+1], distribution [D, N]) or a lane-batched one with a leading axis
@@ -25,12 +27,15 @@ import torch
 
 from ..device import resolve_device, resolve_dtype
 from ..ops.grids import build_asset_grids
-from ..ops.interp import interp1d_rowwise, locate_in_grid
-from ..ops.kernels import (egm_policy_grid, egm_step_lanes, lottery_targets,
-                           push_forward_lanes, stationary_lottery_grid)
+from ..ops.interp import append_tail_knot, interp1d_rowwise, locate_in_grid
+from ..ops.kernels import (egm_policy_grid, egm_step_lanes, fused_cell_grid,
+                           lottery_gather, push_forward_lanes,
+                           stationary_lottery_grid)
 from ..ops.markov import (normalized_labor_states, stationary_distribution,
                           tauchen_labor_process)
+from ..ops.utility import asymptotic_mpc
 from ..solver_health import NONFINITE, classify_fixed_point_exit
+from ..utils.config import resolve_grid, resolve_kernel
 
 # The reference's borrowing-constraint knot value.
 CONSTRAINT_EPS = 1e-7
@@ -38,6 +43,11 @@ CONSTRAINT_EPS = 1e-7
 STALL_WINDOW = 512
 # Cap on the Anderson/Aitken rate, so lam / (1 - lam) stays finite.
 LAM_MAX = 0.995
+# First tail segment's slope: kappa + TAIL_SLOPE_BLEND (s_local - kappa).
+# Both pure endpoints are biased by concavity (the JAX package measured
+# -0.65 bp of r* for kappa alone and +0.31 bp for the local slope at the
+# worst golden cell); 3/4 centres the drift.
+TAIL_SLOPE_BLEND = 0.75
 
 
 class HouseholdPolicy(NamedTuple):
@@ -67,24 +77,33 @@ class WealthTransition(NamedTuple):
     a_next: torch.Tensor  # [D, N] savings policy on the distribution grid
 
 
-_ROADMAP = {
-    "precision": "ROADMAP Queue 1 item 6 (precision ladder)",
-    "grid": "ROADMAP Queue 1 item 7 (grid compaction)",
-    "kernel": "ROADMAP Queue 1 item 8 and Queue 2 items 5-6 (fused kernel)",
-    "state": "ROADMAP Queue 1 item 13 (sharding)",
-}
-_REFERENCE = {"precision": "reference", "grid": "reference",
-              "kernel": "reference", "state": "replicated"}
+_LADDER = ("the coarse-to-fine grid ladder is not ported yet: ROADMAP "
+           "Queue 1 item 7 (grid compaction); compact grids run only "
+           "under kernel='fused'")
 
 
-def check_policies(**policies) -> None:
-    """Raise ``NotImplementedError`` for any solver policy this slice has
-    not ported, naming the ROADMAP item that will port it."""
-    for key, value in policies.items():
-        if value != _REFERENCE[key]:
-            raise NotImplementedError(
-                f"{key}={value!r} is not ported yet: {_ROADMAP[key]}; only "
-                f"{key}={_REFERENCE[key]!r} runs in this slice")
+def check_policies(precision="reference", grid="reference",
+                   kernel="reference", state="replicated") -> None:
+    """Raise for any solver policy the port does not run: an unknown grid
+    or kernel name raises ``ValueError``; a policy not ported yet raises
+    ``NotImplementedError`` naming the ROADMAP item that will port it.
+    ``kernel`` is "reference" or "fused"; a compact ``grid`` runs only
+    under ``kernel="fused"`` (elsewhere the JAX package runs the grid
+    ladder)."""
+    gspec, kspec = resolve_grid(grid), resolve_kernel(kernel)
+    if precision != "reference":
+        rung = (" and, under kernel='fused', item 8 (bf16 descent rung)"
+                if kspec.fused else "")
+        raise NotImplementedError(
+            f"precision={precision!r} is not ported yet: ROADMAP Queue 1 "
+            f"item 6 (precision ladder){rung}; only 'reference' runs")
+    if state != "replicated":
+        raise NotImplementedError(
+            f"state={state!r} is not ported yet: ROADMAP Queue 1 item 13 "
+            f"(sharding); only 'replicated' runs")
+    if gspec.compact and not kspec.fused:
+        raise NotImplementedError(f"grid={grid!r} under kernel={kernel!r}: "
+                                  f"{_LADDER}")
 
 
 # ---------------------------------------------------------------------------
@@ -96,15 +115,18 @@ def build_simple_model(labor_states: int = 7, labor_ar: float = 0.6,
                        a_min: float = 0.001, a_max: float = 50.0,
                        a_count: int = 32, a_nest_fac: int = 2,
                        dist_count: int = 500, borrow_limit: float = 0.0,
-                       grid="reference", dtype=None,
-                       device=None) -> SimpleModel:
+                       grid="reference", grid_tail: str = "analytic",
+                       dtype=None, device=None) -> SimpleModel:
     """Assemble one cell's calibration arrays on ``device`` (default: the
-    card) in ``dtype`` (default float32)."""
+    card) in ``dtype`` (default float32).  ``grid``/``grid_tail`` pick the
+    grids (``ops.grids.build_asset_grids``): under a compact ``grid`` the
+    solver closes the top with the analytic tail ("analytic") or the
+    grid carries sparse tail anchors ("anchors")."""
     dev = resolve_device(device)
     dt = resolve_dtype(dtype)
     a_grid, dist_grid, _ = build_asset_grids(
         grid, a_min, a_max, a_count, a_nest_fac, dist_count,
-        borrow_limit=borrow_limit, dtype=dt, device=dev)
+        borrow_limit=borrow_limit, dtype=dt, device=dev, tail=grid_tail)
     tauchen = tauchen_labor_process(labor_states, labor_ar, labor_sd,
                                     bound=labor_bound, dtype=dt, device=dev)
     levels = normalized_labor_states(tauchen.grid)
@@ -121,7 +143,14 @@ def is_batched(model: SimpleModel) -> bool:
 
 
 def stack_models(models) -> SimpleModel:
-    """Lane-batched model from one-cell models of equal shapes."""
+    """Lane-batched model from one-cell models of equal shapes (a compact
+    grid's sizes depend on the grid settings only, not on the labor
+    process, so the cells of one sweep stack)."""
+    models = list(models)
+    shapes = {tuple(tuple(f.shape) for f in m) for m in models}
+    if len(shapes) > 1:
+        raise ValueError(f"stack_models: the cells' shapes differ: "
+                         f"{sorted(shapes)}")
     return SimpleModel(*(torch.stack(f) for f in zip(*models)))
 
 
@@ -148,9 +177,12 @@ def _lane_scalar(x, like: torch.Tensor) -> torch.Tensor:
     return x.expand(like.shape[0]) if x.dim() == 0 else x
 
 
-def initial_policy(model: SimpleModel) -> HouseholdPolicy:
+def initial_policy(model: SimpleModel,
+                   analytic_tail: bool = False) -> HouseholdPolicy:
     """Terminal guess c(m) = m - b (consume everything above the debt
-    limit) as knots of slope 1."""
+    limit) as knots of slope 1.  ``analytic_tail`` appends the two tail
+    knots (slope 1), so the guess has the compact policy's shape
+    [N, A+3]."""
     n = model.labor_levels.shape[-1]
     a = model.a_grid
     eps = torch.tensor(CONSTRAINT_EPS, dtype=a.dtype, device=a.device)
@@ -158,8 +190,12 @@ def initial_policy(model: SimpleModel) -> HouseholdPolicy:
     m_row = torch.cat([(b + eps)[..., None], a + eps], dim=-1)
     m_knots = m_row[..., None, :].expand(
         *m_row.shape[:-1], n, m_row.shape[-1]).clone()
-    return HouseholdPolicy(m_knots=m_knots,
-                           c_knots=m_knots - b[..., None, None])
+    c_knots = m_knots - b[..., None, None]
+    if analytic_tail:
+        one = torch.ones((), dtype=a.dtype, device=a.device)
+        for _ in range(2):
+            m_knots, c_knots = append_tail_knot(m_knots, c_knots, one)
+    return HouseholdPolicy(m_knots=m_knots, c_knots=c_knots)
 
 
 def initial_distribution(model: SimpleModel) -> torch.Tensor:
@@ -181,19 +217,93 @@ def _scalars(R, W, model: SimpleModel, disc_fac, crra) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# The analytic tail of a compact-grid policy.
+# ---------------------------------------------------------------------------
+
+def perfect_foresight_human_wealth(R, W, labor_levels: torch.Tensor,
+                                   transition: torch.Tensor) -> torch.Tensor:
+    """Per-state present value of future labor income, ``h = P (y + h) /
+    R`` with ``y = W l``: the intercept of the consumption asymptote
+    ``c = kappa (m + h)``.  ``R`` is floored at 1 + 1e-3 (a bisection
+    probe at a negative rate has no convergent value; the tail then only
+    needs a finite surrogate).  ``labor_levels`` [..., N], ``transition``
+    [..., N, N], ``R``/``W`` scalars or [...]."""
+    dt, dev = labor_levels.dtype, labor_levels.device
+    R = torch.as_tensor(R, dtype=dt, device=dev)
+    W = torch.as_tensor(W, dtype=dt, device=dev)
+    y = W[..., None] * labor_levels
+    R_eff = torch.clamp_min(R, 1.0 + 1e-3)[..., None]
+    n = labor_levels.shape[-1]
+    rhs = torch.matmul(transition, y[..., None])[..., 0] / R_eff
+    eye = torch.eye(n, dtype=dt, device=dev)
+    return torch.linalg.solve(eye - transition / R_eff[..., None], rhs)
+
+
+def _append_analytic_tail_knots(m_knots, c_knots, kappa, h):
+    """Close knots ``[..., N, A+1]`` with the two-knot analytic tail, given
+    the raw asymptotic MPC ``kappa`` (scalar or [...]; clipped here to
+    [1e-3, 0.999]) and the human wealth ``h`` [..., N].  The first knot
+    lies one span (the knots' width, floored at 1) past the top, on the
+    blended slope ``kappa + TAIL_SLOPE_BLEND (s_local - kappa)`` clipped
+    to [kappa, 1] and capped by the asymptote ``kappa (m + h)``; the
+    second one span further on slope ``kappa``, which governs
+    extrapolation.  Returns ``[..., N, A+3]``.
+
+    The slope guard is ``finfo(float64).tiny`` cast to the knots' dtype,
+    as in the JAX package: in float32 that cast underflows to 0."""
+    dt, dev = m_knots.dtype, m_knots.device
+    tiny = torch.tensor(torch.finfo(torch.float64).tiny, dtype=dt,
+                        device=dev)
+    kappa = torch.clamp(torch.as_tensor(kappa, dtype=dt, device=dev), 1e-3,
+                        0.999)[..., None]
+    m_top = m_knots[..., -1]
+    c_top = c_knots[..., -1]
+    span = torch.clamp_min(m_top - m_knots[..., 0], 1.0)
+    s_loc = ((c_knots[..., -1] - c_knots[..., -2])
+             / torch.maximum(m_knots[..., -1] - m_knots[..., -2], tiny))
+    s_bar = torch.minimum(
+        torch.maximum(kappa + TAIL_SLOPE_BLEND * (s_loc - kappa), kappa),
+        torch.ones((), dtype=dt, device=dev))
+    m1 = m_top + span
+    c1 = torch.minimum(c_top + s_bar * span, kappa * (m1 + h))
+    c1 = torch.maximum(c1, c_top + kappa * span)   # monotone floor
+    m2 = m1 + span
+    c2 = c1 + kappa * span
+    return (torch.cat([m_knots, m1[..., None], m2[..., None]], dim=-1),
+            torch.cat([c_knots, c1[..., None], c2[..., None]], dim=-1))
+
+
+def _append_analytic_tail(m_knots, c_knots, R, W, disc_fac, crra,
+                          labor_levels, transition):
+    """The analytic tail from the model: slope ``asymptotic_mpc(R, beta,
+    crra)``, intercept ``perfect_foresight_human_wealth``."""
+    return _append_analytic_tail_knots(
+        m_knots, c_knots, asymptotic_mpc(R, disc_fac, crra),
+        perfect_foresight_human_wealth(R, W, labor_levels, transition))
+
+
+# ---------------------------------------------------------------------------
 # Policy fixed point.
 # ---------------------------------------------------------------------------
 
 def egm_step(policy: HouseholdPolicy, R, W, model: SimpleModel, disc_fac,
-             crra) -> HouseholdPolicy:
-    """One EGM backward step (one cell, or every lane of a batch)."""
+             crra, analytic_tail: bool = False) -> HouseholdPolicy:
+    """One EGM backward step (one cell, or every lane of a batch).
+    ``analytic_tail`` closes the new knots with the analytic tail
+    ([N, A+3]): the plain reference of the fused kernel's compact-grid
+    step."""
     if not is_batched(model):
         return _drop(egm_step(_lift(policy), _lift_scalar(R),
                               _lift_scalar(W), _lift(model), disc_fac,
-                              _lift_scalar(crra)))
-    return HouseholdPolicy(*egm_step_lanes(
-        policy.m_knots, policy.c_knots, model.a_grid, model.labor_levels,
-        model.transition, _scalars(R, W, model, disc_fac, crra)))
+                              _lift_scalar(crra), analytic_tail))
+    sc = _scalars(R, W, model, disc_fac, crra)
+    m, c = egm_step_lanes(policy.m_knots, policy.c_knots, model.a_grid,
+                          model.labor_levels, model.transition, sc)
+    if analytic_tail:
+        m, c = _append_analytic_tail(m, c, sc[:, 0], sc[:, 1], sc[:, 2],
+                                     sc[:, 3], model.labor_levels,
+                                     model.transition)
+    return HouseholdPolicy(m, c)
 
 
 def pairwise_sum(x: torch.Tensor) -> torch.Tensor:
@@ -299,9 +409,15 @@ def solve_household(R, W, model: SimpleModel, disc_fac, crra,
     kernel (its plain version for CPU tensors): one cell, or every lane
     of a batch (``R``/``W``/``crra`` then scalars or [C]).  Returns
     (policy, n_iter, final_diff, status); the status is rebuilt from
-    (n_iter, final_diff), exact because this loop has no stall exit."""
+    (n_iter, final_diff), exact because this loop has no stall exit.
+    ``kernel="fused"`` runs the same kernel, as the JAX package runs its
+    EGM kernel there; a compact ``grid`` would run the grid ladder, which
+    is not ported."""
     check_policies(precision=precision, grid=grid, kernel=kernel,
                    state=state)
+    if resolve_grid(grid).compact:
+        raise NotImplementedError(f"solve_household(grid={grid!r}): "
+                                  f"{_LADDER}")
     if not is_batched(model):
         p0 = None if init_policy is None else _lift(init_policy)
         pol, it, diff, status = solve_household(
@@ -366,14 +482,11 @@ def dense_wealth_operator(trans: WealthTransition,
 
 def _push_forward(dist: torch.Tensor, trans: WealthTransition,
                   transition_matrix: torch.Tensor) -> torch.Tensor:
-    """One cell's push-forward step: scatter the mass along the lottery,
+    """One cell's push-forward step: move the mass along the lottery,
     then mix labor states."""
-    n = dist.shape[1]
-    tgt, src, coef = lottery_targets(trans.idx[None], trans.weight[None])
-    state = torch.arange(n, device=dist.device)[None, :, None]
-    return push_forward_lanes(dist[None], (tgt * n + state).reshape(-1),
-                              (src * n + state).reshape(-1),
-                              coef.reshape(-1), transition_matrix[None])[0]
+    src, coef = lottery_gather(trans.idx[None], trans.weight[None])
+    return push_forward_lanes(dist[None], src, coef,
+                              transition_matrix[None])[0]
 
 
 def distribution_loop(push, dist0: torch.Tensor, tol: float, max_iter: int,
@@ -448,9 +561,9 @@ def stationary_wealth(policy: HouseholdPolicy, R, W, model: SimpleModel,
                       state="replicated"):
     """Stationary joint distribution over (wealth, labor state), [D, N]
     (or [C, D, N]), through the ``stationary_lottery_grid`` kernel (its
-    plain version for CPU tensors).  Returns (dist, n_iter, diff,
-    status) with ``diff`` the best certified residual; the status is
-    rebuilt from (n_iter, diff)."""
+    plain version for CPU tensors), under ``kernel="fused"`` too.
+    Returns (dist, n_iter, diff, status) with ``diff`` the best certified
+    residual; the status is rebuilt from (n_iter, diff)."""
     check_policies(precision=precision, kernel=kernel, state=state)
     if not is_batched(model):
         d0 = None if init_dist is None else init_dist[None]
@@ -465,6 +578,57 @@ def stationary_wealth(policy: HouseholdPolicy, R, W, model: SimpleModel,
         accel_every)
     return dist, it, diff, classify_fixed_point_exit(diff, tol, it,
                                                      max_iter)
+
+
+# ---------------------------------------------------------------------------
+# Both fixed points in one launch.
+# ---------------------------------------------------------------------------
+
+def fused_supply_phases(R, W, model: SimpleModel, disc_fac, crra,
+                        egm_tol: float, dist_tol: float,
+                        init_policy_knots: HouseholdPolicy | None = None,
+                        init_dist=None, egm_max_iter: int = 3000,
+                        egm_accel: int = 32, dist_max_iter: int = 20000,
+                        dist_accel: int = 64, grid="reference"):
+    """One supply evaluation's two inner fixed points (EGM policy, then
+    the stationary distribution under it) as one launch of the
+    ``fused_cell_grid`` kernel (its plain version for CPU tensors).  Under
+    a compact ``grid`` the kernel closes every policy iterate with the
+    analytic tail; the human-wealth intercept is computed here (an
+    [N, N] solve that depends only on R, W and P).  One cell, or every
+    lane of a batch.
+
+    Returns ``(policy, dist, egm_iters, dist_iters, egm_status,
+    dist_status)``, both statuses rebuilt from the kernel's (iters, diff)
+    pairs."""
+    if not is_batched(model):
+        p0 = None if init_policy_knots is None else _lift(init_policy_knots)
+        d0 = None if init_dist is None else init_dist[None]
+        out = fused_supply_phases(
+            _lift_scalar(R), _lift_scalar(W), _lift(model), disc_fac,
+            _lift_scalar(crra), egm_tol, dist_tol, p0, d0, egm_max_iter,
+            egm_accel, dist_max_iter, dist_accel, grid)
+        return (_drop(out[0]),) + tuple(x[0] for x in out[1:])
+    tail = resolve_grid(grid).compact
+    p0 = (initial_policy(model, analytic_tail=tail)
+          if init_policy_knots is None else init_policy_knots)
+    d0 = initial_distribution(model) if init_dist is None else init_dist
+    sc = _scalars(R, W, model, disc_fac, crra)
+    if tail:
+        h = perfect_foresight_human_wealth(sc[:, 0], sc[:, 1],
+                                           model.labor_levels,
+                                           model.transition)
+    else:
+        h = torch.zeros_like(model.labor_levels)
+    m, c, dist, egm_it, egm_diff, dist_it, dist_diff = fused_cell_grid(
+        p0.m_knots, p0.c_knots, model.a_grid, model.dist_grid,
+        model.labor_levels, model.transition, sc, h, d0, egm_tol,
+        egm_max_iter, egm_accel, dist_tol, dist_max_iter, dist_accel, tail)
+    return (HouseholdPolicy(m_knots=m, c_knots=c), dist, egm_it, dist_it,
+            classify_fixed_point_exit(egm_diff, egm_tol, egm_it,
+                                      egm_max_iter),
+            classify_fixed_point_exit(dist_diff, dist_tol, dist_it,
+                                      dist_max_iter))
 
 
 def aggregate_capital(dist: torch.Tensor, model: SimpleModel) -> torch.Tensor:

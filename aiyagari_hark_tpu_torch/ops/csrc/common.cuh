@@ -71,6 +71,12 @@ __host__ __device__ __forceinline__ int next_pow2(int m) {
   return p;
 }
 
+// Bytes of one lane's row in a global workspace of `bytes` per lane: rows
+// start 16-byte aligned (ops.kernels._workspace allocates the same).
+__host__ __device__ __forceinline__ size_t ws_row_bytes(size_t bytes) {
+  return (bytes + 15) / 16 * 16;
+}
+
 // Sum of a[0..m) by the pairwise tree the plain PyTorch versions use
 // (household.pairwise_sum): pad with zeros to p = next_pow2(m), then level
 // by level x[i] = x[2i] + x[2i+1].  Both engines therefore round every

@@ -45,6 +45,17 @@ def interp1d_rowwise(x: torch.Tensor, xp: torch.Tensor,
     return _lerp(x, xp, fp, _bracket(xp, x))
 
 
+def append_tail_knot(m_knots: torch.Tensor, c_knots: torch.Tensor, slope):
+    """Close knot arrays ``[..., N, K]`` with one linear tail knot per
+    state, one span (the knots' width, floored at 1) past the last knot,
+    on the line of ``slope``: every evaluation above the old top knot
+    then rides ``c_top + slope (m - m_top)``.  Returns ``[..., N, K+1]``."""
+    m_top = m_knots[..., -1:]
+    span = torch.clamp_min(m_top - m_knots[..., :1], 1.0)
+    return (torch.cat([m_knots, m_top + span], dim=-1),
+            torch.cat([c_knots, c_knots[..., -1:] + slope * span], dim=-1))
+
+
 def locate_in_grid(x: torch.Tensor, grid: torch.Tensor):
     """Young-lottery bracket index and right-neighbour weight of ``x`` on
     ``grid``; the weight is clipped to [0, 1] so mass never leaves the

@@ -1,9 +1,11 @@
-"""The two hand-written CUDA fixed-point kernels, their plain PyTorch
+"""The hand-written CUDA fixed-point kernels, their plain PyTorch
 versions, the build and loader, and the launch counters.
 
 ``egm_policy_grid`` replaces the TPU kernels ``egm_policy_pallas`` and
 ``egm_policy_pallas_grid``; ``stationary_lottery_grid`` replaces
-``stationary_dense_pallas`` and ``stationary_dense_pallas_grid``
+``stationary_dense_pallas`` and ``stationary_dense_pallas_grid``;
+``fused_cell_grid`` (both fixed points of a supply evaluation in one
+launch) replaces ``fused_cell_pallas`` and ``fused_cell_pallas_grid``
 (``aiyagari_hark_tpu/ops/pallas_kernels.py``).  Each takes a leading lane
 axis ``C``; a single cell is ``C = 1``.
 
@@ -34,12 +36,16 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = {
     "egm_policy_grid": "egm_policy_grid.cu",
     "stationary_lottery_grid": "stationary_lottery_grid.cu",
+    "fused_cell_grid": "fused_cell_grid.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
-# Shared memory one block may use on an H100 (232,448 bytes).
+# Shared memory one block may use on an H100 (232,448 bytes), and the part
+# a lane's workspace may take: 1 KB stays for the kernels' static shared
+# arrays.  A workspace above it goes to global memory (same arithmetic).
 MAX_SHARED_BYTES = 232448
+MAX_WORKSPACE_SHARED_BYTES = MAX_SHARED_BYTES - 1024
 
 # Launch counters: one plain integer per kernel, advanced only where the
 # wrapper launches its kernel (never by a plain version).
@@ -73,21 +79,34 @@ def _nvcc() -> str:
 
 def _digest(name: str) -> str:
     h = hashlib.sha256()
-    for f in (SOURCES[name], "common.cuh"):
-        h.update((_CSRC / f).read_bytes())
+    for f in [_CSRC / SOURCES[name], *sorted(_CSRC.glob("*.cuh"))]:
+        h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
 def _bind(lib, name: str) -> None:
     vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    ull = ctypes.c_ulonglong
     if name == "egm_policy_grid":
         for sfx in ("f32", "f64"):
             fn = getattr(lib, f"egm_policy_grid_{sfx}")
-            fn.argtypes = [vp] * 10 + [ci, ci, ci, cd, ci, ci, vp]
+            fn.argtypes = [vp] * 11 + [ci, ci, ci, ci, cd, ci, ci, vp]
             fn.restype = ci
-        lib.egm_policy_grid_smem_bytes.argtypes = [ci, ci, ci]
-        lib.egm_policy_grid_smem_bytes.restype = ctypes.c_ulonglong
+        lib.egm_policy_grid_workspace_bytes.argtypes = [ci, ci, ci]
+        lib.egm_policy_grid_workspace_bytes.restype = ull
+    elif name == "fused_cell_grid":
+        for sfx in ("f32", "f64"):
+            fn = getattr(lib, f"fused_cell_grid_{sfx}")
+            fn.argtypes = [vp] * 18 + [ci, ci, ci, ci, ci, ci, cd, ci, ci,
+                                       cd, ci, ci, vp]
+            fn.restype = ci
+        lib.fused_cell_grid_workspace_bytes.argtypes = [ci, ci, ci, ci, ci]
+        lib.fused_cell_grid_workspace_bytes.restype = ull
+        lib.fused_cell_grid_scratch_elems.argtypes = [ci, ci]
+        lib.fused_cell_grid_scratch_elems.restype = ull
+        lib.fused_cell_grid_max_states.argtypes = []
+        lib.fused_cell_grid_max_states.restype = ci
     else:
         for sfx in ("f32", "f64"):
             fn = getattr(lib, f"stationary_lottery_grid_{sfx}")
@@ -96,8 +115,7 @@ def _bind(lib, name: str) -> None:
         lib.stationary_lottery_grid_max_states.argtypes = []
         lib.stationary_lottery_grid_max_states.restype = ci
         lib.stationary_lottery_grid_scratch_elems.argtypes = [ci, ci]
-        lib.stationary_lottery_grid_scratch_elems.restype = \
-            ctypes.c_ulonglong
+        lib.stationary_lottery_grid_scratch_elems.restype = ull
 
 
 def build_libraries(names=tuple(SOURCES)) -> float:
@@ -150,6 +168,17 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 def _stream(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _workspace(nbytes: int, C: int, force_global: bool, dev):
+    """(use shared memory, global workspace) for a lane workspace of
+    ``nbytes``: shared memory when it fits and the caller does not force
+    the global layout, else a [C, nbytes] scratch (rows 16-byte aligned)."""
+    if nbytes <= MAX_WORKSPACE_SHARED_BYTES and not force_global:
+        return True, torch.empty((0,), dtype=torch.uint8, device=dev)
+    row = -(-nbytes // 16) * 16
+    return False, torch.empty((max(C, 1), row), dtype=torch.uint8,
+                              device=dev)
 
 
 def _check(name: str, tensors: dict, dtype, device) -> None:
@@ -211,14 +240,20 @@ def egm_policy_grid_plain(m0, c0, a_grid, levels, P, scalars, tol: float,
 
 
 def egm_policy_grid(m0, c0, a_grid, levels, P, scalars, tol: float,
-                    max_iter: int = 3000, accel_every: int = 32):
+                    max_iter: int = 3000, accel_every: int = 32,
+                    force_global: bool = False):
     """Batched EGM policy fixed points, one lane per thread block.
 
     Args: ``m0``/``c0`` [C, N, A+1] initial knots, ``a_grid`` [C, A],
     ``levels`` [C, N], ``P`` [C, N, N], ``scalars`` [C, 5] packed
     (R, W, beta, crra, borrow_limit).  Returns (m [C, N, A+1],
     c [C, N, A+1], iters [C] int32, diff [C]); the status is rebuilt
-    from (iters, diff) by ``classify_fixed_point_exit``."""
+    from (iters, diff) by ``classify_fixed_point_exit``.
+
+    A lane's iterates live in shared memory when they fit one block's
+    share, else in a global workspace; the arithmetic and its order are
+    the same, so the two layouts agree bitwise.  ``force_global`` takes
+    the global layout at any size (a check of that claim)."""
     dev, dt = m0.device, m0.dtype
     C, N, K = m0.shape
     A = K - 1
@@ -238,12 +273,6 @@ def egm_policy_grid(m0, c0, a_grid, levels, P, scalars, tol: float,
                                      tol, max_iter, accel_every)
     lib = _library("egm_policy_grid")
     f64 = dt == torch.float64
-    smem = int(lib.egm_policy_grid_smem_bytes(N, A, int(f64)))
-    if smem > MAX_SHARED_BYTES:
-        raise ValueError(
-            f"egm_policy_grid: N={N} labor states x A={A} assets needs "
-            f"{smem} bytes of shared memory per lane in {dt}, above the "
-            f"{MAX_SHARED_BYTES} a block may use")
     args = [t.contiguous() for t in (m0, c0, a_grid, levels, P, scalars)]
     m = torch.empty_like(args[0])
     c = torch.empty_like(args[0])
@@ -251,10 +280,13 @@ def egm_policy_grid(m0, c0, a_grid, levels, P, scalars, tol: float,
     diff = torch.empty((C,), dtype=dt, device=dev)
     if C == 0:
         return m, c, iters, diff
+    shared, ws = _workspace(
+        int(lib.egm_policy_grid_workspace_bytes(N, A, int(f64))), C,
+        force_global, dev)
     fn = lib.egm_policy_grid_f64 if f64 else lib.egm_policy_grid_f32
     rc = fn(*(_ptr(t) for t in args), _ptr(m), _ptr(c), _ptr(iters),
-            _ptr(diff), C, N, A, float(tol), int(max_iter),
-            int(accel_every), _stream(dev))
+            _ptr(diff), _ptr(ws), int(shared), C, N, A, float(tol),
+            int(max_iter), int(accel_every), _stream(dev))
     if rc != 0:
         raise RuntimeError(f"egm_policy_grid: kernel launch failed with "
                            f"CUDA error {rc}")
@@ -296,17 +328,44 @@ def lottery_csr(idx: torch.Tensor, weight: torch.Tensor):
             torch.gather(coef, -1, order).contiguous())
 
 
-def push_forward_lanes(dist, tgt_flat, src_flat, coef_flat, P):
-    """One push-forward step for every lane: scatter the mass along the
-    lottery (on the CPU accumulated in contribution order; on the card in
-    atomic order), then mix labor states in state order.  ``dist``
-    [C, D, N], ``P`` [C, N, N]."""
+def lottery_gather(idx: torch.Tensor, weight: torch.Tensor):
+    """The lottery as a gather, padded to the largest in-degree: for every
+    target (lane, gridpoint, labor state), flattened as [C*D*N], its
+    sources in ``lottery_csr`` order.  Returns (source [Kmax, C*D*N]
+    int64 index into the flattened distribution, coefficient
+    [Kmax, C*D*N]); a padding slot has coefficient 0 and reads gridpoint 0
+    of its own lane and state, so a non-finite lane stays its own."""
+    C, D, N = idx.shape
+    dev = idx.device
+    start, src, coef = lottery_csr(idx, weight)
+    tgt, _, _ = lottery_targets(idx, weight)
+    tgt = torch.sort(tgt, dim=-1, stable=True).values          # [C, N, 2D]
+    rank = (torch.arange(2 * D, device=dev)
+            - torch.gather(start.long(), -1, tgt))
+    kmax = int(rank.max()) + 1
+    lane = torch.arange(C, device=dev)[:, None, None].expand_as(tgt)
+    state = torch.arange(N, device=dev)[None, :, None].expand_as(tgt)
+    flat = (lane * D + tgt) * N + state
+    col = torch.arange(C * D * N, device=dev)
+    src_pad = (col // (D * N) * (D * N) + col % N).expand(kmax, -1).clone()
+    coef_pad = torch.zeros((kmax, C * D * N), dtype=coef.dtype, device=dev)
+    src_pad[rank, flat] = (lane * D + src.long()) * N + state
+    coef_pad[rank, flat] = coef
+    return src_pad, coef_pad
+
+
+def push_forward_lanes(dist, src_pad, coef_pad, P):
+    """One push-forward step for every lane: each target sums its lottery
+    shares from 0 left to right in ``lottery_csr`` order -- the kernel's
+    order, on every device (a padding slot adds +0.0, which changes no
+    bit) -- then the labor states mix in state order.  ``dist``
+    [C, D, N], ``(src_pad, coef_pad)`` from ``lottery_gather``, ``P``
+    [C, N, N]."""
     C, D, N = dist.shape
-    vals = dist.reshape(-1)[src_flat] * coef_flat
-    moved = torch.zeros(C * D * N, dtype=dist.dtype, device=dist.device)
-    # on the CPU index_add_ adds in index order (the JAX scatter's order);
-    # index_put_(accumulate=True) may not, under several threads
-    moved.index_add_(0, tgt_flat, vals)
+    vals = dist.reshape(-1)[src_pad] * coef_pad
+    moved = torch.zeros_like(vals[0])
+    for k in range(vals.shape[0]):
+        moved = moved + vals[k]
     moved = moved.reshape(C, D, N)
     out = moved[:, :, 0, None] * P[:, None, 0, :]
     for n in range(1, N):
@@ -326,16 +385,10 @@ def stationary_lottery_grid_plain(idx, weight, P, dist0, tol: float,
     last one when that was non-finite."""
     from ..models.household import distribution_loop
 
-    C, D, N = dist0.shape
-    tgt, src, coef = lottery_targets(idx, weight)
-    lane = torch.arange(C, device=dist0.device)[:, None, None]
-    state = torch.arange(N, device=dist0.device)[None, :, None]
-    tgt_flat = ((lane * D + tgt) * N + state).reshape(-1)
-    src_flat = ((lane * D + src) * N + state).reshape(-1)
-    coef_flat = coef.reshape(-1)
+    src, coef = lottery_gather(idx, weight)
     best_dist, it, best, last = distribution_loop(
-        lambda d: push_forward_lanes(d, tgt_flat, src_flat, coef_flat, P),
-        dist0, tol, max_iter, accel_every)
+        lambda d: push_forward_lanes(d, src, coef, P), dist0, tol, max_iter,
+        accel_every)
     return best_dist, it, torch.where(torch.isfinite(last), best, last)
 
 
@@ -390,3 +443,122 @@ def stationary_lottery_grid(idx, weight, P, dist0, tol: float,
                            f"with CUDA error {rc}")
     LAUNCHES["stationary_lottery_grid"] += 1
     return dist, iters, diff
+
+
+# ---------------------------------------------------------------------------
+# Both fixed points of a supply evaluation in one launch.
+# ---------------------------------------------------------------------------
+
+def fused_cell_grid_plain(m0, c0, a_grid, dist_grid, levels, P, scalars, h,
+                          d0, tol: float, max_iter: int = 3000,
+                          accel_every: int = 32, dist_tol: float = 1e-11,
+                          dist_max_iter: int = 20000, dist_accel: int = 64,
+                          tail: bool = False):
+    """Plain PyTorch version of the fused kernel, from the port's plain
+    pieces: ``egm_step_lanes`` (closed by the analytic tail if ``tail``)
+    under the accelerated policy loop, ``household.wealth_transition`` on
+    the final knots, then ``stationary_lottery_grid_plain``.  Same
+    signature and results as ``fused_cell_grid``."""
+    from ..models.household import (HouseholdPolicy, SimpleModel,
+                                    _append_analytic_tail_knots,
+                                    accelerated_policy_fixed_point,
+                                    wealth_transition)
+    from .utility import asymptotic_mpc
+
+    R, W, beta, crra, b = (scalars[:, i] for i in range(5))
+    kappa = asymptotic_mpc(R, beta, crra)
+
+    def step(p):
+        m, c = egm_step_lanes(p.m_knots, p.c_knots, a_grid, levels, P,
+                              scalars)
+        if tail:
+            m, c = _append_analytic_tail_knots(m, c, kappa, h)
+        return HouseholdPolicy(m, c)
+
+    pol, egm_it, egm_diff, _ = accelerated_policy_fixed_point(
+        step, HouseholdPolicy(m0, c0), tol, max_iter, accel_every)
+    # labor_stationary is a placeholder: the transition does not read it
+    model = SimpleModel(a_grid, levels, P, levels, dist_grid, b)
+    trans = wealth_transition(pol, R, W, model)
+    dist, dist_it, dist_diff = stationary_lottery_grid_plain(
+        trans.idx, trans.weight, P, d0, dist_tol, dist_max_iter, dist_accel)
+    return (pol.m_knots, pol.c_knots, dist, egm_it, egm_diff, dist_it,
+            dist_diff)
+
+
+def fused_cell_grid(m0, c0, a_grid, dist_grid, levels, P, scalars, h, d0,
+                    tol: float, max_iter: int = 3000, accel_every: int = 32,
+                    dist_tol: float = 1e-11, dist_max_iter: int = 20000,
+                    dist_accel: int = 64, tail: bool = False,
+                    force_global: bool = False):
+    """Batched supply evaluations, one lane per thread block: the EGM
+    policy fixed point, the savings policy on the histogram support, the
+    lottery grouped by target, and the stationary distribution, in one
+    launch.
+
+    Args: ``m0``/``c0`` [C, N, K] initial knots (K = A+1, or A+3 with
+    ``tail``: every iterate closed by the analytic tail), ``a_grid``
+    [C, A], ``dist_grid`` [C, D], ``levels`` [C, N], ``P`` [C, N, N],
+    ``scalars`` [C, 5] packed (R, W, beta, crra, borrow_limit), ``h``
+    [C, N] the tail's human wealth (zeros without ``tail``), ``d0``
+    [C, D, N].  Returns (m [C, N, K], c [C, N, K], dist [C, D, N],
+    egm_iters [C] int32, egm_diff [C], dist_iters [C] int32,
+    dist_diff [C]); the statuses are rebuilt from the (iters, diff)
+    pairs.  ``force_global``: as for ``egm_policy_grid``."""
+    dev, dt = m0.device, m0.dtype
+    C, N, K = m0.shape
+    A = a_grid.shape[-1]
+    D = dist_grid.shape[-1]
+    if K != A + (3 if tail else 1) or c0.shape != m0.shape \
+            or a_grid.shape != (C, A) or dist_grid.shape != (C, D) \
+            or levels.shape != (C, N) or P.shape != (C, N, N) \
+            or scalars.shape != (C, 5) or h.shape != (C, N) \
+            or d0.shape != (C, D, N):
+        raise ValueError(
+            f"fused_cell_grid: shapes m0 {tuple(m0.shape)}, c0 "
+            f"{tuple(c0.shape)}, a {tuple(a_grid.shape)}, dist_grid "
+            f"{tuple(dist_grid.shape)}, levels {tuple(levels.shape)}, P "
+            f"{tuple(P.shape)}, scalars {tuple(scalars.shape)}, h "
+            f"{tuple(h.shape)}, d0 {tuple(d0.shape)} do not agree "
+            f"(tail={tail})")
+    _check("fused_cell_grid", dict(m0=m0, c0=c0, a_grid=a_grid,
+                                   dist_grid=dist_grid, levels=levels, P=P,
+                                   scalars=scalars, h=h, d0=d0), dt, dev)
+    if dev.type == "cpu":
+        return fused_cell_grid_plain(m0, c0, a_grid, dist_grid, levels, P,
+                                     scalars, h, d0, tol, max_iter,
+                                     accel_every, dist_tol, dist_max_iter,
+                                     dist_accel, tail)
+    lib = _library("fused_cell_grid")
+    max_n = int(lib.fused_cell_grid_max_states())
+    if N > max_n:
+        raise ValueError(f"fused_cell_grid: N={N} labor states exceeds the "
+                         f"kernel's {max_n}")
+    f64 = dt == torch.float64
+    args = [t.contiguous() for t in (m0, c0, a_grid, dist_grid, levels, P,
+                                     scalars, h, d0)]
+    m = torch.empty_like(args[0])
+    c = torch.empty_like(args[0])
+    dist = torch.empty_like(args[8])
+    egm_it = torch.empty((C,), dtype=torch.int32, device=dev)
+    egm_diff = torch.empty((C,), dtype=dt, device=dev)
+    dist_it = torch.empty((C,), dtype=torch.int32, device=dev)
+    dist_diff = torch.empty((C,), dtype=dt, device=dev)
+    outs = (m, c, dist, egm_it, egm_diff, dist_it, dist_diff)
+    if C == 0:
+        return outs
+    shared, ws = _workspace(int(lib.fused_cell_grid_workspace_bytes(
+        N, A, D, int(tail), int(f64))), C, force_global, dev)
+    scratch = torch.empty(
+        (C, int(lib.fused_cell_grid_scratch_elems(D, N))), dtype=dt,
+        device=dev)
+    fn = lib.fused_cell_grid_f64 if f64 else lib.fused_cell_grid_f32
+    rc = fn(*(_ptr(t) for t in args), *(_ptr(t) for t in outs), _ptr(ws),
+            _ptr(scratch), int(shared), int(tail), C, N, A, D, float(tol),
+            int(max_iter), int(accel_every), float(dist_tol),
+            int(dist_max_iter), int(dist_accel), _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"fused_cell_grid: kernel launch failed with "
+                           f"CUDA error {rc}")
+    LAUNCHES["fused_cell_grid"] += 1
+    return outs

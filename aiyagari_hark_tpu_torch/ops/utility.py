@@ -33,3 +33,11 @@ def inverse_marginal_utility(vp: torch.Tensor, crra) -> torch.Tensor:
     """(u')^{-1}(x) = x^(-1/crra) -- the EGM first-order-condition
     inversion."""
     return vp ** (-1.0 / crra)
+
+
+def asymptotic_mpc(R, disc_fac, crra):
+    """The perfect-foresight limit of the marginal propensity to consume,
+    ``kappa = 1 - (beta R)^(1/crra) / R`` (Ma-Stachurski-Toda): the slope
+    of the analytic tail that closes a compact-grid policy.  Arguments
+    may be tensors of one value per lane."""
+    return 1.0 - (disc_fac * R) ** (1.0 / crra) / R

@@ -4,7 +4,8 @@ schedule of ``aiyagari_hark_tpu/parallel/sweep.run_table2_sweep``).
 Every (sigma, rho, sd) cell is a lane of one lane-batched bisection
 (``models.equilibrium.solve_equilibrium_lean``); each lane runs its own
 bracket and exits at its own convergence, and the inner fixed points of
-all active lanes run as one launch of each CUDA kernel per trip.  The
+all active lanes run as one launch of each CUDA kernel per trip (of the
+fused kernel alone under ``kernel="fused"``).  The
 JAX engine's scheduler, quarantine ladder, resume ledger, integrity
 rechecks and sharding are not ported (ROADMAP Queue 1 items 9, 10, 13):
 a failed cell keeps its failing status and NaN values.
@@ -24,7 +25,7 @@ from ..models.household import build_simple_model, stack_models
 from ..solver_health import is_failure
 
 _MODEL_KEYS = ("labor_states", "a_min", "a_max", "a_count", "a_nest_fac",
-               "dist_count", "grid")
+               "dist_count")
 
 
 def sweep_cells(crra_values=(1.0, 3.0, 5.0), rho_values=(0.0, 0.3, 0.6, 0.9),
@@ -67,7 +68,8 @@ def run_table2_sweep(cells=None, dtype=None, device=None,
     ``cells``: (crra, rho, sd) triples, default ``sweep_cells()`` (the 12
     Table II cells).  ``model_kwargs`` go to the model build
     (``a_count``, ``dist_count``, ...) and to the solver (``disc_fac``,
-    ``cap_share``, ``depr_fac``, ``prod``, tolerances).
+    ``cap_share``, ``depr_fac``, ``prod``, tolerances, ``kernel``);
+    ``grid`` goes to both.
 
     ``wall_seconds`` covers the model build and the batched solve, and
     stops after the results reach the host."""
@@ -77,6 +79,7 @@ def run_table2_sweep(cells=None, dtype=None, device=None,
                        dtype=np.float64)
     kw = dict(model_kwargs)
     build_kw = {k: kw.pop(k) for k in _MODEL_KEYS if k in kw}
+    grid = kw.pop("grid", "reference")
     alpha = kw.pop("cap_share", 0.36)
     delta = kw.pop("depr_fac", 0.08)
     prod = kw.pop("prod", 1.0)
@@ -86,11 +89,11 @@ def run_table2_sweep(cells=None, dtype=None, device=None,
     t0 = time.perf_counter()
     model = stack_models([
         build_simple_model(labor_ar=float(rho), labor_sd=float(sd),
-                           dtype=dt, device=dev, **build_kw)
+                           grid=grid, dtype=dt, device=dev, **build_kw)
         for _, rho, sd in cells])
     crra = torch.as_tensor(cells[:, 0], dtype=dt, device=dev)
     lean = solve_equilibrium_lean(model, beta, crra, alpha, delta, prod,
-                                  **kw)
+                                  grid=grid, **kw)
     host = {k: v.cpu().numpy() for k, v in lean._asdict().items()}
     wall = time.perf_counter() - t0
 

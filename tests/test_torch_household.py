@@ -202,7 +202,8 @@ def test_accelerated_loops_flag_a_nonfinite_step():
 
 @pytest.mark.parametrize("kw,item", [
     (dict(precision="mixed"), "item 6"), (dict(grid="compact"), "item 7"),
-    (dict(kernel="fused"), "item 8"), (dict(state="sharded"), "item 13")])
+    (dict(kernel="fused", precision="mixed"), "item 8"),
+    (dict(state="sharded"), "item 13")])
 def test_unported_policies_raise_naming_their_roadmap_item(models, kw, item):
     _, tm = models
     with pytest.raises(NotImplementedError, match=item):

@@ -143,7 +143,13 @@ def test_wrappers_run_the_plain_versions_on_cpu_without_counting(models):
     for a, b in zip(K.stationary_lottery_grid(*dargs, 1e-10),
                     K.stationary_lottery_grid_plain(*dargs, 1e-10)):
         assert torch.equal(a, b)
-    assert K.LAUNCHES == {"egm_policy_grid": 0, "stationary_lottery_grid": 0}
+    fargs = (*args[:2], args[2], tm.dist_grid.expand(2, -1), *args[3:],
+             torch.zeros(2, 3, dtype=torch.float64),
+             th.initial_distribution(tm).expand(2, -1, -1), 1e-6)
+    for a, b in zip(K.fused_cell_grid(*fargs), K.fused_cell_grid_plain(*fargs)):
+        assert torch.equal(a, b)
+    assert K.LAUNCHES == {"egm_policy_grid": 0, "stationary_lottery_grid": 0,
+                          "fused_cell_grid": 0}
 
 
 def test_wrappers_validate_shapes_and_dtypes(models):

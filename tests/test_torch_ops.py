@@ -74,8 +74,19 @@ def test_reference_asset_grids_match_jax(borrow_limit):
 
 
 def test_compact_grids_name_their_roadmap_item():
+    """The compact grids build (``tests/test_torch_fused.py`` holds them
+    to the JAX points); the grid ladder that the JAX package runs on them
+    outside the fused kernel is not ported and names its item."""
+    from aiyagari_hark_tpu_torch.models import household as th
+
+    a, d, knee = tgrids.build_asset_grids("compact", 0.001, 50.0, 24, 2,
+                                          150, dtype=F64)
+    assert knee is not None and len(a) < 24 and len(d) < 150
+    model = th.build_simple_model(labor_states=3, a_count=12, dist_count=48,
+                                  grid="compact", dtype=F64, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-        tgrids.build_asset_grids("compact", 0.001, 50.0, 24, 2, 150)
+        th.solve_household(1.02, 1.0, model, 0.96, 2.0, grid="compact",
+                           kernel="fused")
 
 
 # -- Markov ------------------------------------------------------------------
