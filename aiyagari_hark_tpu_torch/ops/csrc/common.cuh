@@ -64,6 +64,28 @@ __device__ __forceinline__ T block_reduce(T v, T* red, Op op) {
   return r;
 }
 
+// Block-wide NaN-propagating max of values >= +0 (so no -0 and the order
+// of the folds changes no bit) into a fresh buffer, with one barrier: the
+// warps reduce by a butterfly, then every warp folds the warp partials by
+// a butterfly too.  Every thread of the block must call it and gets the
+// same value; the barrier also orders every shared or global write made
+// before it.  `red` is shared scratch of blockDim.x / 32 elements that no
+// thread may still be reading: a caller that reduces once per step
+// alternates two buffers.
+template <typename T>
+__device__ __forceinline__ T block_max_fresh(T v, T* red) {
+  for (int o = 16; o > 0; o >>= 1)
+    v = nan_max(v, __shfl_xor_sync(0xffffffffu, v, o));
+  const int lane = threadIdx.x & 31;
+  const int nw = blockDim.x >> 5;
+  if (lane == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  T r = red[lane < nw ? lane : 0];
+  for (int o = 16; o > 0; o >>= 1)
+    r = nan_max(r, __shfl_xor_sync(0xffffffffu, r, o));
+  return r;
+}
+
 // Smallest power of two >= m (m >= 1).
 __host__ __device__ __forceinline__ int next_pow2(int m) {
   int p = 1;
@@ -98,6 +120,61 @@ __device__ T tree_sum(T* a, T* b, int m) {
   const T r = src[0];
   __syncthreads();   // every thread has read the sum before `a` is reused
   return r;
+}
+
+// The same tree without a buffer.  Let nt = min(blockDim.x, p) threads
+// each own p / nt contiguous leaves (zeros past m): a thread sums its
+// chunk pairwise in registers (chunk_pairwise), which gives one node of
+// the tree, and tree_combine joins the nt nodes level by level with warp
+// shuffles -- at offset o, lane 2jo adds lane 2jo+o, exactly the tree's
+// neighbours -- then the warp partials the same way in every warp.  IEEE
+// addition is commutative, so every partial sum rounds as in tree_sum.
+constexpr int kChunkLevels = 16;   // a chunk holds at most 2^16 leaves
+
+// Pairwise sum of leaf(lo), ..., leaf(lo + len - 1), len a power of two,
+// as a binary counter: acc[lv] keeps the pending left subtree of 2^lv
+// leaves.  The levels are unrolled, so acc lives in registers.
+template <typename T, typename Leaf>
+__device__ __forceinline__ T chunk_pairwise(Leaf leaf, int lo, int len) {
+  T acc[kChunkLevels];
+  T v = T(0);
+  for (int i = 0; i < len; ++i) {
+    v = leaf(lo + i);
+#pragma unroll
+    for (int lv = 0; lv < kChunkLevels; ++lv) {
+      if (((i >> lv) & 1) == 0) {
+        acc[lv] = v;
+        break;
+      }
+      v = acc[lv] + v;
+    }
+  }
+  return v;   // after the last leaf: the whole chunk
+}
+
+// Pairwise levels of `width` consecutive lanes (a power of two <= 32):
+// lane 0 of each group ends with the group's subtree.
+template <typename T>
+__device__ __forceinline__ T warp_tree(T v, int width) {
+  for (int o = 1; o < width; o <<= 1)
+    v = v + __shfl_down_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// The root of the tree whose nodes threads 0..nt-1 hold (nt a power of two
+// <= blockDim.x <= 1024; other threads pass anything).  Every thread of the
+// block must call it and gets the root; one barrier.  `part` is shared
+// scratch of blockDim.x / 32 elements that no thread may still be reading.
+template <typename T>
+__device__ __forceinline__ T tree_combine(T v, int nt, T* part) {
+  const int lane = threadIdx.x & 31;
+  v = warp_tree(v, nt < 32 ? nt : 32);
+  if (lane == 0) part[threadIdx.x >> 5] = v;
+  __syncthreads();
+  const int nw = nt > 32 ? nt >> 5 : 1;
+  T u = lane < nw ? part[lane] : T(0);
+  u = warp_tree(u, nw);
+  return __shfl_sync(0xffffffffu, u, 0);
 }
 
 }  // namespace ahtt

@@ -46,6 +46,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # arrays.  A workspace above it goes to global memory (same arithmetic).
 MAX_SHARED_BYTES = 232448
 MAX_WORKSPACE_SHARED_BYTES = MAX_SHARED_BYTES - 1024
+# The distribution kernels' layouts, by the code the kernels take: the
+# whole lane in global memory; the lottery and the iterates in shared
+# memory, the best iterate in the output; all of it in shared memory.
+LAYOUTS = ("global", "shared_best_in_output", "shared")
 
 # Launch counters: one plain integer per kernel, advanced only where the
 # wrapper launches its kernel (never by a plain version).
@@ -98,22 +102,21 @@ def _bind(lib, name: str) -> None:
     elif name == "fused_cell_grid":
         for sfx in ("f32", "f64"):
             fn = getattr(lib, f"fused_cell_grid_{sfx}")
-            fn.argtypes = [vp] * 18 + [ci, ci, ci, ci, ci, ci, cd, ci, ci,
-                                       cd, ci, ci, vp]
+            fn.argtypes = [vp] * 17 + [ci] * 6 + [cd, ci, ci, cd, ci, ci, vp]
             fn.restype = ci
-        lib.fused_cell_grid_workspace_bytes.argtypes = [ci, ci, ci, ci, ci]
+        lib.fused_cell_grid_workspace_bytes.argtypes = [ci] * 6
         lib.fused_cell_grid_workspace_bytes.restype = ull
-        lib.fused_cell_grid_scratch_elems.argtypes = [ci, ci]
-        lib.fused_cell_grid_scratch_elems.restype = ull
         lib.fused_cell_grid_max_states.argtypes = []
         lib.fused_cell_grid_max_states.restype = ci
     else:
         for sfx in ("f32", "f64"):
             fn = getattr(lib, f"stationary_lottery_grid_{sfx}")
-            fn.argtypes = [vp] * 9 + [ci, ci, ci, cd, ci, ci, vp]
+            fn.argtypes = [vp] * 9 + [ci] * 4 + [cd, ci, ci, vp]
             fn.restype = ci
         lib.stationary_lottery_grid_max_states.argtypes = []
         lib.stationary_lottery_grid_max_states.restype = ci
+        lib.stationary_lottery_grid_shared_bytes.argtypes = [ci] * 4
+        lib.stationary_lottery_grid_shared_bytes.restype = ull
         lib.stationary_lottery_grid_scratch_elems.argtypes = [ci, ci]
         lib.stationary_lottery_grid_scratch_elems.restype = ull
 
@@ -179,6 +182,17 @@ def _workspace(nbytes: int, C: int, force_global: bool, dev):
     row = -(-nbytes // 16) * 16
     return False, torch.empty((max(C, 1), row), dtype=torch.uint8,
                               device=dev)
+
+
+def _lottery_layout(nbytes, force_global: bool) -> int:
+    """Index into ``LAYOUTS`` of a distribution kernel's layout, by size
+    alone (never after a failure): ``nbytes(best)`` is a lane's
+    shared-memory workspace with (1) or without (0) the best iterate."""
+    if force_global:
+        return 0
+    if nbytes(1) <= MAX_WORKSPACE_SHARED_BYTES:
+        return 2
+    return 1 if nbytes(0) <= MAX_WORKSPACE_SHARED_BYTES else 0
 
 
 def _check(name: str, tensors: dict, dtype, device) -> None:
@@ -392,15 +406,37 @@ def stationary_lottery_grid_plain(idx, weight, P, dist0, tol: float,
     return best_dist, it, torch.where(torch.isfinite(last), best, last)
 
 
+def _stationary_layout(D: int, N: int, dtype, force_global: bool) -> int:
+    lib = _library("stationary_lottery_grid")
+    f64 = int(dtype == torch.float64)
+    return _lottery_layout(
+        lambda best: int(lib.stationary_lottery_grid_shared_bytes(
+            D, N, f64, best)), force_global)
+
+
+def stationary_lottery_grid_layout(D: int, N: int, dtype,
+                                   force_global: bool = False) -> str:
+    """The layout ``stationary_lottery_grid`` runs a [D, N] lane in on the
+    card (an entry of ``LAYOUTS``)."""
+    return LAYOUTS[_stationary_layout(D, N, dtype, force_global)]
+
+
 def stationary_lottery_grid(idx, weight, P, dist0, tol: float,
-                            max_iter: int = 20000, accel_every: int = 64):
+                            max_iter: int = 20000, accel_every: int = 64,
+                            force_global: bool = False):
     """Batched stationary distributions of the Young-lottery operator,
     one lane per thread block.
 
     Args: ``idx`` [C, D, N] left-neighbour index and ``weight`` [C, D, N]
     right-neighbour share (``WealthTransition``), ``P`` [C, N, N],
     ``dist0`` [C, D, N].  Returns (dist [C, D, N], iters [C] int32,
-    diff [C]); the status is rebuilt from (iters, diff)."""
+    diff [C]); the status is rebuilt from (iters, diff).
+
+    A lane's lottery and iterates live in shared memory when they fit one
+    block's share (the best iterate too when it fits), else in global
+    memory; the arithmetic and its order are the same, so the layouts
+    agree bitwise.  ``force_global`` takes the global layout at any size
+    (a check of that claim)."""
     dev, dt = dist0.device, dist0.dtype
     C, D, N = dist0.shape
     if idx.shape != dist0.shape or weight.shape != dist0.shape \
@@ -423,6 +459,9 @@ def stationary_lottery_grid(idx, weight, P, dist0, tol: float,
         raise ValueError(f"stationary_lottery_grid: N={N} labor states "
                          f"(D={D}) exceeds the kernel's {max_n}")
     start, src, coef = lottery_csr(idx, weight)
+    # each source as its element d N + n of the flattened [D, N] iterate
+    elem = (src * N + torch.arange(N, dtype=src.dtype, device=dev)[:, None]
+            ).contiguous()
     P = P.contiguous()
     dist0 = dist0.contiguous()
     dist = torch.empty_like(dist0)
@@ -430,14 +469,16 @@ def stationary_lottery_grid(idx, weight, P, dist0, tol: float,
     diff = torch.empty((C,), dtype=dt, device=dev)
     if C == 0:
         return dist, iters, diff
-    per_lane = int(lib.stationary_lottery_grid_scratch_elems(D, N))
+    layout = _stationary_layout(D, N, dt, force_global)
+    per_lane = (int(lib.stationary_lottery_grid_scratch_elems(D, N))
+                if layout == 0 else 0)
     scratch = torch.empty((C, per_lane), dtype=dt, device=dev)
     f64 = dt == torch.float64
     fn = (lib.stationary_lottery_grid_f64 if f64
           else lib.stationary_lottery_grid_f32)
-    rc = fn(_ptr(start), _ptr(src), _ptr(coef), _ptr(P), _ptr(dist0),
-            _ptr(dist), _ptr(iters), _ptr(diff), _ptr(scratch), C, D, N,
-            float(tol), int(max_iter), int(accel_every), _stream(dev))
+    rc = fn(_ptr(start), _ptr(elem), _ptr(coef), _ptr(P), _ptr(dist0),
+            _ptr(dist), _ptr(iters), _ptr(diff), _ptr(scratch), layout, C,
+            D, N, float(tol), int(max_iter), int(accel_every), _stream(dev))
     if rc != 0:
         raise RuntimeError(f"stationary_lottery_grid: kernel launch failed "
                            f"with CUDA error {rc}")
@@ -486,6 +527,22 @@ def fused_cell_grid_plain(m0, c0, a_grid, dist_grid, levels, P, scalars, h,
             dist_diff)
 
 
+def _fused_layout(N: int, A: int, D: int, tail: bool, dtype,
+                  force_global: bool) -> int:
+    lib = _library("fused_cell_grid")
+    f64 = int(dtype == torch.float64)
+    return _lottery_layout(
+        lambda best: int(lib.fused_cell_grid_workspace_bytes(
+            N, A, D, int(tail), f64, best)), force_global)
+
+
+def fused_cell_grid_layout(N: int, A: int, D: int, tail: bool, dtype,
+                           force_global: bool = False) -> str:
+    """The layout ``fused_cell_grid`` runs a lane in on the card (an entry
+    of ``LAYOUTS``)."""
+    return LAYOUTS[_fused_layout(N, A, D, tail, dtype, force_global)]
+
+
 def fused_cell_grid(m0, c0, a_grid, dist_grid, levels, P, scalars, h, d0,
                     tol: float, max_iter: int = 3000, accel_every: int = 32,
                     dist_tol: float = 1e-11, dist_max_iter: int = 20000,
@@ -504,7 +561,9 @@ def fused_cell_grid(m0, c0, a_grid, dist_grid, levels, P, scalars, h, d0,
     [C, D, N].  Returns (m [C, N, K], c [C, N, K], dist [C, D, N],
     egm_iters [C] int32, egm_diff [C], dist_iters [C] int32,
     dist_diff [C]); the statuses are rebuilt from the (iters, diff)
-    pairs.  ``force_global``: as for ``egm_policy_grid``."""
+    pairs.  ``force_global``: as for ``stationary_lottery_grid``; the
+    workspace holds the lottery, then one region that the EGM phase and
+    the sort use first and the distribution iterates then."""
     dev, dt = m0.device, m0.dtype
     C, N, K = m0.shape
     A = a_grid.shape[-1]
@@ -547,14 +606,13 @@ def fused_cell_grid(m0, c0, a_grid, dist_grid, levels, P, scalars, h, d0,
     outs = (m, c, dist, egm_it, egm_diff, dist_it, dist_diff)
     if C == 0:
         return outs
-    shared, ws = _workspace(int(lib.fused_cell_grid_workspace_bytes(
-        N, A, D, int(tail), int(f64))), C, force_global, dev)
-    scratch = torch.empty(
-        (C, int(lib.fused_cell_grid_scratch_elems(D, N))), dtype=dt,
-        device=dev)
+    layout = _fused_layout(N, A, D, tail, dt, force_global)
+    # a global workspace (without the best iterate) only for layout 0
+    _, ws = _workspace(int(lib.fused_cell_grid_workspace_bytes(
+        N, A, D, int(tail), int(f64), 0)), C, layout == 0, dev)
     fn = lib.fused_cell_grid_f64 if f64 else lib.fused_cell_grid_f32
     rc = fn(*(_ptr(t) for t in args), *(_ptr(t) for t in outs), _ptr(ws),
-            _ptr(scratch), int(shared), int(tail), C, N, A, D, float(tol),
+            layout, int(tail), C, N, A, D, float(tol),
             int(max_iter), int(accel_every), float(dist_tol),
             int(dist_max_iter), int(dist_accel), _stream(dev))
     if rc != 0:

@@ -10,10 +10,14 @@ Phases (each raises on failure, and the script then exits non-zero):
      the reference width (N=7, A=32, D=500), C=12 and C=1, float64 and
      float32: equal step counts, values within the stated tolerances
      (the distribution kernel bitwise), C=12 bitwise equal to twelve C=1
-     launches, the EGM kernel's global-memory layout bitwise equal to its
-     shared-memory one; kernel times with CUDA events.  The fused kernel
-     runs on the reference grid and, with its analytic tail, on the
-     compact grid;
+     launches, each kernel's global-memory layout (force_global=True)
+     bitwise equal to the shared-memory one it takes by default; kernel
+     times with CUDA events, both layouts timed in turns, and for the
+     distribution loops the time per step of the slowest lane.  The
+     fused kernel runs on the reference grid and, with its analytic tail,
+     on the compact grid, and once more with no distribution step, which
+     splits its EGM, transition and sort phases from its distribution
+     phase;
   3. the reference path (kernel="reference"), float64: the 12-cell sweep
      at full width against tests/data/table2_golden.json, launch counters
      advanced;
@@ -24,8 +28,9 @@ Phases (each raises on failure, and the script then exits non-zero):
   6. where the float64 sweeps' time goes (torch.profiler), reference and
      fused;
   7. the fine configuration (A=1000, N=15, D=1000, float64): the EGM
-     kernel (global-memory workspace) and the distribution kernel against
-     their plain versions;
+     kernel and the distribution kernel, both in their global-memory
+     layout (the lane does not fit shared memory), against their plain
+     versions;
   8. one cell with the full equilibrium objects (the single-lane entry:
      every launch has C=1), reference and fused, launch counters advanced.
 Every phase line carries the card's name and power limit.  The line
@@ -101,6 +106,13 @@ def cuda_ms(fn, reps: int = 5) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def paired_ms(fa, fb, reps: int = 5):
+    """Mean milliseconds of ``fa`` and ``fb`` on the card, each timed twice
+    by ``cuda_ms`` in turns (a, b, b, a)."""
+    a1, b1, b2, a2 = (cuda_ms(fn, reps) for fn in (fa, fb, fb, fa))
+    return (a1 + a2) / 2, (b1 + b2) / 2
 
 
 def wall_ms(fn) -> float:
@@ -224,17 +236,31 @@ def phase_kernels(dev):
                     raise AssertionError(
                         f"stationary_lottery_grid lane {c}: C=1 is not "
                         f"bitwise equal to C=12 ({dt})")
+        D, N = d0.shape[1:]
+        layout = K.stationary_lottery_grid_layout(D, N, dt)
+        glob = K.stationary_lottery_grid(*dist_args, force_global=True)
+        for x, y in zip(glob, (kd, kit, kdiff)):
+            if not torch.equal(x, y):
+                raise AssertionError(
+                    f"stationary_lottery_grid: the global-memory layout is "
+                    f"not bitwise equal to the {layout} one ({dt})")
         rec = dict(dtype=str(dt), ok=True, max_abs_err=err,
                    iters=kit.tolist(), bitwise_c1_c12=True,
-                   bitwise_vs_plain=True,
-                   kernel_ms=cuda_ms(
-                       lambda: K.stationary_lottery_grid(*dist_args)),
-                   plain_ms=plain_ms)
+                   bitwise_vs_plain=True, layout=layout,
+                   bitwise_global_shared=True, plain_ms=plain_ms)
+        rec["kernel_ms"], rec["global_ms"] = paired_ms(
+            lambda: K.stationary_lottery_grid(*dist_args),
+            lambda: K.stationary_lottery_grid(*dist_args, force_global=True))
+        steps = int(kit.max())         # the slowest lane sets the time
+        rec["ns_per_step"] = 1e6 * rec["kernel_ms"] / steps
+        rec["global_ns_per_step"] = 1e6 * rec["global_ms"] / steps
         rec["bound_ms"], rec["bound_by"] = dist_bound(dt, C, model, kit)
         c1 = int(kit.argmax())
         one_args = tuple(t[c1:c1 + 1] for t in dist_args[:4]) + (dist_tol,)
-        rec["c1_lane"], rec["c1_ms"] = c1, cuda_ms(
-            lambda: K.stationary_lottery_grid(*one_args))
+        rec["c1_lane"] = c1
+        rec["c1_ms"], rec["c1_global_ms"] = paired_ms(
+            lambda: K.stationary_lottery_grid(*one_args),
+            lambda: K.stationary_lottery_grid(*one_args, force_global=True))
         rec["c1_plain_ms"] = wall_ms(
             lambda: K.stationary_lottery_grid_plain(*one_args))
         rec["c1_bound_ms"] = dist_bound(dt, 1, model, kit[c1:c1 + 1])[0]
@@ -285,24 +311,39 @@ def fused_kernel_check(dev, dt, grid):
             if not torch.equal(x[0], y[c]):
                 raise AssertionError(f"fused_cell_grid lane {c}: C=1 is not "
                                      f"bitwise equal to C=12 ({dt}, {grid})")
+    N, K_ = km.shape[1:]
+    D = kd.shape[1]
+    A = model.a_grid.shape[1]
+    layout = K.fused_cell_grid_layout(N, A, D, tail, dt)
     for x, y in zip(K.fused_cell_grid(*args, **kw, force_global=True), out):
         if not torch.equal(x, y):
             raise AssertionError(f"fused_cell_grid: the global-memory layout "
-                                 f"is not bitwise equal to the shared-memory "
-                                 f"one ({dt}, {grid})")
+                                 f"is not bitwise equal to the {layout} one "
+                                 f"({dt}, {grid})")
     rec = dict(dtype=str(dt), grid=grid, tail=tail, ok=True,
                max_abs_err=err, egm_iters=keit.tolist(),
                dist_iters=kdit.tolist(), bitwise_c1_c12=True,
-               bitwise_global_shared=True,
-               knots=tuple(km.shape[1:]), dist_points=int(kd.shape[1]),
-               kernel_ms=cuda_ms(lambda: K.fused_cell_grid(*args, **kw)),
-               plain_ms=plain_ms)
+               layout=layout, bitwise_global_shared=True,
+               knots=(N, K_), dist_points=D, plain_ms=plain_ms)
+    rec["kernel_ms"], rec["global_ms"] = paired_ms(
+        lambda: K.fused_cell_grid(*args, **kw),
+        lambda: K.fused_cell_grid(*args, **kw, force_global=True))
+    # the EGM, transition and sort phases alone: no distribution step
+    rec["no_dist_ms"] = cuda_ms(
+        lambda: K.fused_cell_grid(*args, **kw, dist_max_iter=0))
+    steps = int(kdit.max())            # the slowest lane's loop
+    rec["ns_per_step"] = 1e6 * rec["kernel_ms"] / steps
+    rec["dist_ns_per_step"] = 1e6 * (rec["kernel_ms"]
+                                     - rec["no_dist_ms"]) / steps
+    rec["global_ns_per_step"] = 1e6 * rec["global_ms"] / steps
     rec["bound_ms"], rec["bound_by"] = fused_bound(dt, C, model, keit, kdit,
                                                    tail)
     c1 = int((keit + kdit).argmax())   # a single cell: the slowest lane
     one_args = tuple(t[c1:c1 + 1] for t in args)
-    rec["c1_lane"], rec["c1_ms"] = c1, cuda_ms(
-        lambda: K.fused_cell_grid(*one_args, **kw))
+    rec["c1_lane"] = c1
+    rec["c1_ms"], rec["c1_global_ms"] = paired_ms(
+        lambda: K.fused_cell_grid(*one_args, **kw),
+        lambda: K.fused_cell_grid(*one_args, **kw, force_global=True))
     rec["c1_plain_ms"] = wall_ms(lambda: K.fused_cell_grid_plain(*one_args,
                                                                  **kw))
     rec["c1_bound_ms"] = fused_bound(dt, 1, model, keit[c1:c1 + 1],
@@ -376,6 +417,21 @@ def fused_bound(dt, C, model, egm_iters, dist_iters, tail):
     nbytes = C * (s * (2 * N * K + A + D + N + N * N + 5 + N + D * N)
                   + s * (2 * N * K + D * N) + 2 * 4 + 2 * s)
     return _bound(dt, nbytes, ops)
+
+
+def fused_over_parts(records):
+    """Per dtype, the fused kernel's C=12 time on the reference grid over
+    the EGM plus the distribution kernel's, all from this run."""
+    out = {}
+    for f in records["fused_cell_grid"]:
+        if f["grid"] != "reference":
+            continue
+        dt = f["dtype"]
+        parts = sum(next(r["kernel_ms"] for r in records[name]
+                         if r["dtype"] == dt)
+                    for name in ("egm_policy_grid", "stationary_lottery_grid"))
+        out[dt] = f["kernel_ms"] / parts
+    return out
 
 
 PATH_KERNELS = {"reference": ("egm_policy_grid", "stationary_lottery_grid"),
@@ -466,7 +522,8 @@ def phase_fine(dev):
     the EGM kernel runs it on its global-memory workspace (its knots do
     not fit one block's shared memory) with the plain version's step
     count and values within F64_TOL; the distribution kernel, on that
-    policy, matches its plain version bitwise, both on the card."""
+    policy, takes its global layout (420 KB of lottery alone) and matches
+    its plain version bitwise, both on the card."""
     from aiyagari_hark_tpu_torch.models import firm
     from aiyagari_hark_tpu_torch.models import household as H
     from aiyagari_hark_tpu_torch.ops import kernels as K
@@ -496,6 +553,11 @@ def phase_fine(dev):
     trans = H.wealth_transition(H.HouseholdPolicy(m, c), R, W, model)
     dargs = (trans.idx, trans.weight, model.transition,
              H.initial_distribution(model), 1e-11)
+    layout = K.stationary_lottery_grid_layout(1000, 15, dt)
+    if layout != "global":
+        raise AssertionError(f"the fine distribution lane takes the {layout} "
+                             f"layout: this phase would not test the global "
+                             f"one")
     kd, kit, kdiff = K.stationary_lottery_grid(*dargs)
     t0 = time.perf_counter()
     pd, pit, pdiff = K.stationary_lottery_grid_plain(*dargs)
@@ -510,7 +572,7 @@ def phase_fine(dev):
     log("fine", egm_policy_grid="ran", egm_workspace_bytes=ws_bytes,
         egm_iters=eit.tolist(), egm_diff=float(ediff[0]),
         egm_max_abs_err=egm_err, egm_kernel_ms=egm_ms,
-        stationary_lottery_grid="ran", iters=kit.tolist(),
+        stationary_lottery_grid="ran", layout=layout, iters=kit.tolist(),
         bitwise_vs_plain=True, dist_plain_ms=dist_plain_ms,
         kernel_ms=cuda_ms(lambda: K.stationary_lottery_grid(*dargs), reps=2))
 
@@ -619,10 +681,14 @@ def main() -> int:
             "c1_ms": r64["c1_ms"], "c1_plain_ms": r64["c1_plain_ms"],
             "c1_bound_ms": r64["c1_bound_ms"],
             "c1_launches": launches_c1[name],
+            "layout": r64.get("layout", "shared"),
+            "global_ms": r64.get("global_ms"),
+            "ns_per_step": r64.get("ns_per_step"),
             "variants": recs[1:],
             "shape": "C=12, N=7, A=32, D=500, float64",
         })
     kernels[-1]["launches_compact_f64"] = c_launches["fused_cell_grid"]
+    kernels[-1]["over_egm_plus_dist"] = fused_over_parts(records)
     print(json.dumps({"kernels": kernels, "sweep_wall_s": {
         "float64": wall64, "float32": wall32, "fused_float64": f_wall64,
         "fused_float32": f_wall32, "fused_compact_float64": c_wall64},

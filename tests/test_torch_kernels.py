@@ -209,6 +209,88 @@ def test_pairwise_sum_is_the_documented_tree(m):
     np.testing.assert_array_equal(_np(out), ref[0])
 
 
+def _chunked_pairwise_sum(x: np.ndarray, threads: int) -> np.ndarray:
+    """The distribution kernels' buffer-free pairwise sum
+    (``csrc/common.cuh``: ``chunk_pairwise``, ``warp_tree``,
+    ``tree_combine``) on each row of ``x`` [C, m], in ``x``'s dtype:
+    nt = min(threads, p) threads own p / nt contiguous leaves (zeros past
+    m), sum them by a binary counter, then warp shuffles join the nodes
+    (at offset o lane i adds lane i + o, or itself past lane 31), then the
+    warp partials the same way."""
+    C, m = x.shape
+    p = 1 << max(m - 1, 0).bit_length()
+    nt = min(threads, p)
+    L = p // nt
+    leaves = np.concatenate([x, np.zeros((C, p - m), x.dtype)], axis=1)
+    chunks = leaves.reshape(C, nt, L)
+    acc, v = {}, None
+    for i in range(L):
+        v = chunks[:, :, i]
+        lv = 0
+        while (i >> lv) & 1:
+            v = acc[lv] + v
+            lv += 1
+        acc[lv] = v
+    node = np.zeros((C, threads), x.dtype)   # threads past nt pass 0
+    node[:, :nt] = v
+
+    def warp_tree(vals, width):              # vals [..., 32]
+        o = 1
+        while o < width:
+            src = np.arange(32) + o
+            src = np.where(src < 32, src, np.arange(32))
+            vals = vals + vals[..., src]
+            o <<= 1
+        return vals[..., 0]
+
+    part = warp_tree(node.reshape(C, threads // 32, 32), min(nt, 32))
+    nw = nt >> 5 if nt > 32 else 1
+    lanes = np.zeros((C, 32), x.dtype)
+    lanes[:, :nw] = part[:, :nw]
+    return warp_tree(lanes, nw)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("threads", [512, 1024])
+@pytest.mark.parametrize("m", [1, 7, 500, 3276, 3500, 15000])
+def test_kernel_chunked_sum_is_the_pairwise_tree(m, threads, dtype):
+    rng = np.random.default_rng(m + threads)
+    x = rng.standard_normal((3, m)).astype(dtype)
+    out = _chunked_pairwise_sum(x, threads)
+    ref = th.pairwise_sum(torch.from_numpy(x))
+    assert out.dtype == dtype
+    np.testing.assert_array_equal(out, _np(ref))
+
+
+def test_force_global_on_cpu_runs_the_plain_version(models):
+    jm, tm = models
+    trans = _lotteries(jm, PRICES)
+    dargs = (torch.tensor(np.stack([np.asarray(t.idx) for t in trans])),
+             torch.tensor(np.stack([np.asarray(t.weight) for t in trans])),
+             tm.transition.expand(2, -1, -1),
+             th.initial_distribution(tm).expand(2, -1, -1), 1e-10)
+    K.reset_launches()
+    for a, b in zip(K.stationary_lottery_grid(*dargs, force_global=True),
+                    K.stationary_lottery_grid(*dargs)):
+        assert torch.equal(a, b)
+    assert K.LAUNCHES["stationary_lottery_grid"] == 0
+
+
+@pytest.mark.parametrize("full, no_best, force_global, layout", [
+    (210_432, 182_432, False, "shared"),
+    (K.MAX_WORKSPACE_SHARED_BYTES, 0, False, "shared"),
+    (K.MAX_WORKSPACE_SHARED_BYTES + 1, 200_000, False,
+     "shared_best_in_output"),
+    (540_060, 480_060, False, "global"),
+    (210_432, 182_432, True, "global"),
+])
+def test_lottery_layout_is_chosen_by_size_alone(full, no_best, force_global,
+                                                layout):
+    sizes = {1: full, 0: no_best}
+    assert K.LAYOUTS[K._lottery_layout(sizes.__getitem__,
+                                       force_global)] == layout
+
+
 def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
     from aiyagari_hark_tpu_torch.device import resolve_device
     from aiyagari_hark_tpu_torch.models.equilibrium import (
