@@ -1,7 +1,8 @@
 // Helpers shared by the fixed-point kernels: NaN-propagating max, the
-// exact pow overloads, and block-wide reductions in a fixed order.
+// exact pow overloads, the explicitly rounded product, and block-wide
+// reductions in a fixed order.
 //
-// A reduction's order depends only on the data of its own block, so one
+// A reduction's order depends only on the data of its own lane, so one
 // lane's bits never depend on the other lanes of a launch or on the run
 // (no atomics anywhere).
 #pragma once
@@ -35,34 +36,22 @@ __device__ __forceinline__ T nan_min(T a, T b) {
   return (a != a || a < b) ? a : b;
 }
 
-// pow in the iterate's own type, never a fast approximation.
+// pow in the iterate's own type, never a fast approximation.  The kernels
+// are compiled with contraction on (--fmad=true), as PyTorch's own
+// kernels are: libdevice's double pow then rounds as torch.pow does on
+// the card.  Built without contraction, it differed from torch.pow on 4
+// of the 779,520 inputs of the 12-cell f64 EGM check at the reference
+// width, and the kernel from its plain version by up to 1.08e-12
+// (scripts/torch_pow_probe.py shows both).
 __device__ __forceinline__ float tpow(float x, float y) { return powf(x, y); }
 __device__ __forceinline__ double tpow(double x, double y) { return pow(x, y); }
 
-struct MaxOp {
-  template <typename T>
-  __device__ __forceinline__ T operator()(T a, T b) const { return nan_max(a, b); }
-};
-
-// Block-wide reduction.  Every thread of the block must call it (it holds
-// barriers) and every thread gets the same value: the warps reduce by a
-// butterfly, then each thread folds the warp partials in warp order.
-// `red` is shared scratch of at least blockDim.x / 32 elements.  The
-// leading barrier also orders this call after every earlier read of `red`
-// and after every shared or global write made before it.
-template <typename T, typename Op>
-__device__ __forceinline__ T block_reduce(T v, T* red, Op op) {
-  for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_xor_sync(0xffffffffu, v, o));
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int nw = blockDim.x >> 5;
-  __syncthreads();
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  T r = red[0];
-  for (int w = 1; w < nw; ++w) r = op(r, red[w]);
-  return r;
-}
+// A product rounded on its own.  With contraction on, `a * b + c` may be
+// fused into one fma; every product the kernels write goes through mul
+// (an explicitly rounded multiply, never fused), so it rounds as
+// PyTorch's separate elementwise kernels round it.
+__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
 
 // Block-wide NaN-propagating max of values >= +0 (so no -0 and the order
 // of the folds changes no bit) into a fresh buffer, with one barrier: the
@@ -99,36 +88,16 @@ __host__ __device__ __forceinline__ size_t ws_row_bytes(size_t bytes) {
   return (bytes + 15) / 16 * 16;
 }
 
-// Sum of a[0..m) by the pairwise tree the plain PyTorch versions use
-// (household.pairwise_sum): pad with zeros to p = next_pow2(m), then level
-// by level x[i] = x[2i] + x[2i+1].  Both engines therefore round every
-// partial sum identically.  `a` holds p elements, `b` p/2; every thread of
-// the block must call it, after writing its share of a[0..m).
-template <typename T>
-__device__ T tree_sum(T* a, T* b, int m) {
-  const int p = next_pow2(m);
-  for (int i = m + threadIdx.x; i < p; i += blockDim.x) a[i] = T(0);
-  __syncthreads();
-  T* src = a;
-  T* dst = b;
-  for (int len = p >> 1; len >= 1; len >>= 1) {
-    for (int i = threadIdx.x; i < len; i += blockDim.x)
-      dst[i] = src[2 * i] + src[2 * i + 1];
-    __syncthreads();
-    T* t = src; src = dst; dst = t;
-  }
-  const T r = src[0];
-  __syncthreads();   // every thread has read the sum before `a` is reused
-  return r;
-}
-
-// The same tree without a buffer.  Let nt = min(blockDim.x, p) threads
-// each own p / nt contiguous leaves (zeros past m): a thread sums its
-// chunk pairwise in registers (chunk_pairwise), which gives one node of
-// the tree, and tree_combine joins the nt nodes level by level with warp
-// shuffles -- at offset o, lane 2jo adds lane 2jo+o, exactly the tree's
-// neighbours -- then the warp partials the same way in every warp.  IEEE
-// addition is commutative, so every partial sum rounds as in tree_sum.
+// Sum of m leaves by the pairwise tree the plain PyTorch versions use
+// (household.pairwise_sum: pad with zeros to p = next_pow2(m), then level
+// by level x[i] = x[2i] + x[2i+1]), without a buffer.  Let nt =
+// min(blockDim.x, p) threads each own p / nt contiguous leaves (zeros past
+// m): a thread sums its chunk pairwise in registers (chunk_pairwise),
+// which gives one node of the tree, and tree_combine joins the nt nodes
+// level by level with warp shuffles -- at offset o, lane 2jo adds lane
+// 2jo+o, exactly the tree's neighbours -- then the warp partials the same
+// way in every warp.  IEEE addition is commutative, so every partial sum
+// rounds as in pairwise_sum.
 constexpr int kChunkLevels = 16;   // a chunk holds at most 2^16 leaves
 
 // Pairwise sum of leaf(lo), ..., leaf(lo + len - 1), len a power of two,

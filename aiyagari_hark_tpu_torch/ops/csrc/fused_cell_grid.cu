@@ -8,7 +8,8 @@
 // program instance per lane); their shared body is _fused_phases.
 //
 // The phases:
-//   1. egm_device.cuh's egm_fixed_point; with `tail` (compact grids) every
+//   1. egm_device.cuh's egm_fixed_point (one block holds the lane); with
+//      `tail` (compact grids) every
 //      iterate is closed by the analytic tail (K = A+3 knots), its slope
 //      computed here, its intercept h [C, N] from the wrapper (an N x N
 //      solve that depends only on R, W and P, as in the TPU kernel);
@@ -52,8 +53,10 @@
 // of 132 SMs on the Table II sweep; spreading a lane over a cluster is
 // later work.
 //
-// Compile without --use_fast_math and with --fmad=false, so every
-// product-then-sum rounds as the plain PyTorch version rounds it.
+// Compile without --use_fast_math and with contraction on (--fmad=true,
+// as PyTorch's kernels are built): pow then rounds as torch.pow does, and
+// every product the kernel writes is rounded on its own (common.cuh's
+// mul), as the plain PyTorch version rounds it.
 #include <cuda_runtime.h>
 
 #include "common.cuh"
@@ -66,6 +69,9 @@ constexpr int kThreads = 512;
 constexpr int kMaxN = ahtt::kLotteryMaxN;
 
 static_assert((kThreads & (kThreads - 1)) == 0, "a power of two");
+static_assert(ahtt::lottery_red_elems(kThreads)
+                  >= ahtt::egm_red_elems(kThreads),
+              "both loops share the reduction scratch");
 
 // Bytes of one lane's workspace: the lottery's CSR and transition, then
 // the larger of phases 1-3 (the EGM region, weights [D, N] in T, bracket
@@ -76,7 +82,8 @@ __host__ __device__ size_t workspace_bytes(int N, int A, int D, bool tail,
                                            bool best) {
   const size_t dn = (size_t)D * N;
   const size_t sort =
-      (ahtt::egm_workspace_elems(N, A, A + (tail ? 3 : 1)) + dn) * sizeof(T)
+      (ahtt::egm_workspace_elems(N, N, A, A + (tail ? 3 : 1)) + dn)
+          * sizeof(T)
       + 2 * dn * sizeof(int);
   const size_t dist = ahtt::lottery_iterate_bytes<T>(D, N, best);
   return ahtt::lottery_csr_bytes<T>(D, N) + (sort > dist ? sort : dist);
@@ -116,25 +123,25 @@ fused_cell_kernel(const T* __restrict__ m0, const T* __restrict__ c0,
     row = smem_raw;
   const ahtt::LotteryCsr<T> csr(row, D, N);
   T* ws = reinterpret_cast<T*>(row + ahtt::lottery_csr_bytes<T>(D, N));
-  const ahtt::EgmWorkspace<T> w(ws, N, A, K);
+  const ahtt::EgmWorkspace<T> w(ws, N, N, A, K);
   const T* s = scal + (size_t)lane * 5;
   ahtt::load_transition(csr.Pt, P_g + (size_t)lane * N * N, N);
 
   // 1. the policy fixed point
-  const ahtt::EgmResult<T> egm = ahtt::egm_fixed_point<T>(
+  const ahtt::EgmResult<T> egm = ahtt::egm_fixed_point<T, false>(
       w, red, m0 + (size_t)lane * NK, c0 + (size_t)lane * NK,
       a_g + (size_t)lane * A, lvl_g + (size_t)lane * N,
-      P_g + (size_t)lane * N * N, s, h_g + (size_t)lane * N, N, A, tl, tol,
-      max_iter, accel_every);
-  const T* km = w.new_m;                // the certified knots [N, K]
-  const T* kc = w.new_c;
+      P_g + (size_t)lane * N * N, s, h_g + (size_t)lane * N, N, N, A, tl,
+      tol, max_iter, accel_every);
+  const T* km = egm.m;                  // the certified knots [N, K]
+  const T* kc = egm.c;
   for (int j = tid; j < NK; j += nthr) {
     m_out[(size_t)lane * NK + j] = km[j];
     c_out[(size_t)lane * NK + j] = kc[j];
   }
 
   // the sort's temporaries, after the EGM region; the CSR is the head
-  T* wgt = ws + ahtt::egm_workspace_elems(N, A, K);   // [D, N]
+  T* wgt = ws + ahtt::egm_workspace_elems(N, N, A, K);   // [D, N]
   int* bidx = reinterpret_cast<int*>(wgt + DN);       // [D, N]
   int* cu = bidx + DN;                                // [N, D]
   T* cf = csr.cf;                                     // [N, 2D]
@@ -148,7 +155,7 @@ fused_cell_kernel(const T* __restrict__ m0, const T* __restrict__ c0,
   for (int j = tid; j < DN; j += nthr) {
     const int d = j / N;
     const int n = j - d * N;
-    const T m = R * x[d] + W * w.lvl[n];
+    const T m = ahtt::mul(R, x[d]) + ahtt::mul(W, w.lvl[n]);
     const T* xp = km + n * K;
     const T* fp = kc + n * K;
     int lo = 0, hi = K;                 // searchsorted(side="right")
@@ -159,7 +166,7 @@ fused_cell_kernel(const T* __restrict__ m0, const T* __restrict__ c0,
     int k = lo - 1;
     k = k < 0 ? 0 : (k > K - 2 ? K - 2 : k);
     const T slope = (fp[k + 1] - fp[k]) / (xp[k + 1] - xp[k]);
-    const T c = fp[k] + slope * (m - xp[k]);
+    const T c = fp[k] + ahtt::mul(slope, m - xp[k]);
     const T an = ahtt::nan_min(ahtt::nan_max(m - c, b), xtop);
     lo = 0;
     hi = D;

@@ -163,7 +163,7 @@ __device__ LotteryResult<T> lottery_fixed_point(
           const T* cfn = cf + n * D2;
           const int k1 = st[n * (D + 1) + t + 1];
           for (int k = st[n * (D + 1) + t]; k < k1; ++k)
-            acc = acc + cur[sen[k]] * cfn[k];
+            acc = acc + mul(cur[sen[k]], cfn[k]);
         }
         own[i] = acc;
       }
@@ -180,10 +180,10 @@ __device__ LotteryResult<T> lottery_fixed_point(
           const int n2 = 2 * i + h;
           if (n2 < N) {
             const T* pr = Pt + n2 * kLotteryMaxN;   // P[., n2], aligned
-            T o = acc[0] * pr[0];
+            T o = mul(acc[0], pr[0]);
 #pragma unroll
             for (int n = 1; n < NB; ++n)
-              if (n < N) o = o + acc[n] * pr[n];
+              if (n < N) o = o + mul(acc[n], pr[n]);
             const int j = t * N + n2;
             nw[j] = o;
             dl = nan_max(dl, (T)fabs(o - cur[j]));
@@ -209,12 +209,12 @@ __device__ LotteryResult<T> lottery_fixed_point(
       T num = T(0), den = T(0);
       if (tid < nt) {
         num = chunk_pairwise<T>([&](int j) {
-          return j < DN ? (nw[j] - cur[j]) * (cur[j] - prv[j]) : T(0);
+          return j < DN ? mul(nw[j] - cur[j], cur[j] - prv[j]) : T(0);
         }, lo, L);
         den = chunk_pairwise<T>([&](int j) {
           if (j >= DN) return T(0);
           const T d1 = cur[j] - prv[j];
-          return d1 * d1;
+          return mul(d1, d1);
         }, lo, L);
       }
       num = tree_combine(num, nt, sum_part);
@@ -229,7 +229,7 @@ __device__ LotteryResult<T> lottery_fixed_point(
       if (tid < nt)
         tot = chunk_pairwise<T>([&](int j) {
           if (j >= DN) return T(0);
-          T e = nw[j] + fac * (nw[j] - cur[j]);
+          T e = nw[j] + mul(fac, nw[j] - cur[j]);
           e = e < T(0) ? T(0) : e;
           prv[j] = e;
           return e;

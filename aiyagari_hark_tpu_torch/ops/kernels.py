@@ -13,7 +13,11 @@ Dispatch: a wrapper runs its plain version only for tensors on the CPU.
 For CUDA tensors it launches its kernel or raises -- there is no fallback.
 The kernels are compiled from ``csrc/`` by ``nvcc`` for ``sm_90a`` at
 first use, one shared library per source (built in parallel), into
-``_build/`` beside this file, and bound with ``ctypes``.
+``_build/`` beside this file, and bound with ``ctypes``.  They are built
+with contraction on, as PyTorch's own kernels are, so that libdevice's
+``pow`` rounds as ``torch.pow`` does on the card; every product the
+kernels write is rounded on its own (``csrc/common.cuh``, ``mul``), as
+the plain versions' separate elementwise operations round it.
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ SOURCES = {
     "fused_cell_grid": "fused_cell_grid.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
+              "-O3", "--fmad=true", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
 # Shared memory one block may use on an H100 (232,448 bytes), and the part
 # a lane's workspace may take: 1 KB stays for the kernels' static shared
@@ -50,6 +54,10 @@ MAX_WORKSPACE_SHARED_BYTES = MAX_SHARED_BYTES - 1024
 # whole lane in global memory; the lottery and the iterates in shared
 # memory, the best iterate in the output; all of it in shared memory.
 LAYOUTS = ("global", "shared_best_in_output", "shared")
+# The EGM kernel's layouts, by the code it takes: one block on a global
+# workspace; one block, all in shared memory; a thread-block cluster, the
+# labor states split over its blocks' shared memory.
+EGM_LAYOUTS = ("global", "shared", "cluster")
 
 # Launch counters: one plain integer per kernel, advanced only where the
 # wrapper launches its kernel (never by a plain version).
@@ -97,8 +105,12 @@ def _bind(lib, name: str) -> None:
             fn = getattr(lib, f"egm_policy_grid_{sfx}")
             fn.argtypes = [vp] * 11 + [ci, ci, ci, ci, cd, ci, ci, vp]
             fn.restype = ci
-        lib.egm_policy_grid_workspace_bytes.argtypes = [ci, ci, ci]
-        lib.egm_policy_grid_workspace_bytes.restype = ull
+        for fn in (lib.egm_policy_grid_workspace_bytes,
+                   lib.egm_policy_grid_cluster_bytes):
+            fn.argtypes = [ci, ci, ci]
+            fn.restype = ull
+        lib.egm_policy_grid_cluster_blocks.argtypes = [ci]
+        lib.egm_policy_grid_cluster_blocks.restype = ci
     elif name == "fused_cell_grid":
         for sfx in ("f32", "f64"):
             fn = getattr(lib, f"fused_cell_grid_{sfx}")
@@ -173,15 +185,13 @@ def _stream(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def _workspace(nbytes: int, C: int, force_global: bool, dev):
-    """(use shared memory, global workspace) for a lane workspace of
-    ``nbytes``: shared memory when it fits and the caller does not force
-    the global layout, else a [C, nbytes] scratch (rows 16-byte aligned)."""
-    if nbytes <= MAX_WORKSPACE_SHARED_BYTES and not force_global:
-        return True, torch.empty((0,), dtype=torch.uint8, device=dev)
+def _workspace(nbytes: int, C: int, use: bool, dev):
+    """A [C, nbytes] global workspace (rows 16-byte aligned) if ``use``,
+    else an empty one (the lane lives in shared memory)."""
+    if not use:
+        return torch.empty((0,), dtype=torch.uint8, device=dev)
     row = -(-nbytes // 16) * 16
-    return False, torch.empty((max(C, 1), row), dtype=torch.uint8,
-                              device=dev)
+    return torch.empty((max(C, 1), row), dtype=torch.uint8, device=dev)
 
 
 def _lottery_layout(nbytes, force_global: bool) -> int:
@@ -193,6 +203,19 @@ def _lottery_layout(nbytes, force_global: bool) -> int:
     if nbytes(1) <= MAX_WORKSPACE_SHARED_BYTES:
         return 2
     return 1 if nbytes(0) <= MAX_WORKSPACE_SHARED_BYTES else 0
+
+
+def _egm_layout(shared_bytes: int, cluster_bytes: int,
+                force_global: bool) -> int:
+    """Index into ``EGM_LAYOUTS`` of the EGM kernel's layout, by size
+    alone (never after a failure): ``shared_bytes`` is a lane's workspace
+    in one block, ``cluster_bytes`` what each block of a cluster lane
+    holds (huge where the lane cannot be split)."""
+    if force_global:
+        return 0
+    if shared_bytes <= MAX_WORKSPACE_SHARED_BYTES:
+        return 1
+    return 2 if cluster_bytes <= MAX_WORKSPACE_SHARED_BYTES else 0
 
 
 def _check(name: str, tensors: dict, dtype, device) -> None:
@@ -253,10 +276,25 @@ def egm_policy_grid_plain(m0, c0, a_grid, levels, P, scalars, tol: float,
     return pol.m_knots, pol.c_knots, it, diff
 
 
+def _egm_sizes(N: int, A: int, dtype):
+    lib = _library("egm_policy_grid")
+    f64 = int(dtype == torch.float64)
+    return (int(lib.egm_policy_grid_workspace_bytes(N, A, f64)),
+            int(lib.egm_policy_grid_cluster_bytes(N, A, f64)))
+
+
+def egm_policy_grid_layout(N: int, A: int, dtype,
+                           force_global: bool = False) -> str:
+    """The layout ``egm_policy_grid`` runs a lane of N labor states and A
+    assets in on the card (an entry of ``EGM_LAYOUTS``)."""
+    return EGM_LAYOUTS[_egm_layout(*_egm_sizes(N, A, dtype), force_global)]
+
+
 def egm_policy_grid(m0, c0, a_grid, levels, P, scalars, tol: float,
                     max_iter: int = 3000, accel_every: int = 32,
                     force_global: bool = False):
-    """Batched EGM policy fixed points, one lane per thread block.
+    """Batched EGM policy fixed points, one lane per thread block or per
+    thread-block cluster.
 
     Args: ``m0``/``c0`` [C, N, A+1] initial knots, ``a_grid`` [C, A],
     ``levels`` [C, N], ``P`` [C, N, N], ``scalars`` [C, 5] packed
@@ -264,10 +302,12 @@ def egm_policy_grid(m0, c0, a_grid, levels, P, scalars, tol: float,
     c [C, N, A+1], iters [C] int32, diff [C]); the status is rebuilt
     from (iters, diff) by ``classify_fixed_point_exit``.
 
-    A lane's iterates live in shared memory when they fit one block's
-    share, else in a global workspace; the arithmetic and its order are
-    the same, so the two layouts agree bitwise.  ``force_global`` takes
-    the global layout at any size (a check of that claim)."""
+    A lane lives in one block's shared memory when it fits; else, split
+    by labor state, in the shared memory of a cluster of up to 8 blocks;
+    else in a global workspace (``egm_policy_grid_layout``).  The
+    arithmetic and its order are the same, so the layouts agree bitwise.
+    ``force_global`` takes the global layout at any size (a check of that
+    claim)."""
     dev, dt = m0.device, m0.dtype
     C, N, K = m0.shape
     A = K - 1
@@ -294,16 +334,16 @@ def egm_policy_grid(m0, c0, a_grid, levels, P, scalars, tol: float,
     diff = torch.empty((C,), dtype=dt, device=dev)
     if C == 0:
         return m, c, iters, diff
-    shared, ws = _workspace(
-        int(lib.egm_policy_grid_workspace_bytes(N, A, int(f64))), C,
-        force_global, dev)
+    shared_bytes, cluster_bytes = _egm_sizes(N, A, dt)
+    layout = _egm_layout(shared_bytes, cluster_bytes, force_global)
+    ws = _workspace(shared_bytes, C, layout == 0, dev)
     fn = lib.egm_policy_grid_f64 if f64 else lib.egm_policy_grid_f32
     rc = fn(*(_ptr(t) for t in args), _ptr(m), _ptr(c), _ptr(iters),
-            _ptr(diff), _ptr(ws), int(shared), C, N, A, float(tol),
+            _ptr(diff), _ptr(ws), layout, C, N, A, float(tol),
             int(max_iter), int(accel_every), _stream(dev))
     if rc != 0:
         raise RuntimeError(f"egm_policy_grid: kernel launch failed with "
-                           f"CUDA error {rc}")
+                           f"CUDA error {rc} ({EGM_LAYOUTS[layout]} layout)")
     LAUNCHES["egm_policy_grid"] += 1
     return m, c, iters, diff
 
@@ -608,7 +648,7 @@ def fused_cell_grid(m0, c0, a_grid, dist_grid, levels, P, scalars, h, d0,
         return outs
     layout = _fused_layout(N, A, D, tail, dt, force_global)
     # a global workspace (without the best iterate) only for layout 0
-    _, ws = _workspace(int(lib.fused_cell_grid_workspace_bytes(
+    ws = _workspace(int(lib.fused_cell_grid_workspace_bytes(
         N, A, D, int(tail), int(f64), 0)), C, layout == 0, dev)
     fn = lib.fused_cell_grid_f64 if f64 else lib.fused_cell_grid_f32
     rc = fn(*(_ptr(t) for t in args), *(_ptr(t) for t in outs), _ptr(ws),

@@ -8,12 +8,11 @@ Phases (each raises on failure, and the script then exits non-zero):
      (one nvcc per source, all started together);
   2. each kernel against its plain PyTorch version, both on the card, at
      the reference width (N=7, A=32, D=500), C=12 and C=1, float64 and
-     float32: equal step counts, values within the stated tolerances
-     (the distribution kernel bitwise), C=12 bitwise equal to twelve C=1
-     launches, each kernel's global-memory layout (force_global=True)
-     bitwise equal to the shared-memory one it takes by default; kernel
-     times with CUDA events, both layouts timed in turns, and for the
-     distribution loops the time per step of the slowest lane.  The
+     float32: equal step counts and bitwise equal values, C=12 bitwise
+     equal to twelve C=1 launches, each kernel's global-memory layout
+     (force_global=True) bitwise equal to the shared-memory one it takes
+     by default; kernel times with CUDA events, both layouts timed in
+     turns, and the time per step of the slowest lane.  The
      fused kernel runs on the reference grid and, with its analytic tail,
      on the compact grid, and once more with no distribution step, which
      splits its EGM, transition and sort phases from its distribution
@@ -28,9 +27,11 @@ Phases (each raises on failure, and the script then exits non-zero):
   6. where the float64 sweeps' time goes (torch.profiler), reference and
      fused;
   7. the fine configuration (A=1000, N=15, D=1000, float64): the EGM
-     kernel and the distribution kernel, both in their global-memory
-     layout (the lane does not fit shared memory), against their plain
-     versions;
+     kernel in its cluster layout (the lane does not fit one block's
+     shared memory) bitwise equal to its plain version, to its global
+     layout and, at C=4, to four C=1 launches, both layouts timed in
+     turns; the distribution kernel in its global layout, bitwise equal to
+     its plain version;
   8. one cell with the full equilibrium objects (the single-lane entry:
      every launch has C=1), reference and fused, launch counters advanced.
 Every phase line carries the card's name and power limit.  The line
@@ -59,8 +60,9 @@ PEAK_FLOPS = {torch.float64: 34e12,           # FP64 outside the tensor cores
 # f64: the JAX kernel-parity tolerance.  f32: two runs of a contraction,
 # each certified to within tol of its previous iterate with rate at most
 # the accelerator's cap 0.995, lie within tol / (1 - 0.995) = 200 tol of
-# each other; the kernel and its plain version are expected to agree
-# bitwise (same arithmetic, same summation order).
+# each other.  Every kernel is also held bitwise to its plain version
+# (same arithmetic, same summation order, pow built as torch.pow is);
+# these tolerances report how far apart the two would be allowed to be.
 F64_TOL = dict(rtol=1e-9, atol=1e-8)
 INNER_TOL = {torch.float64: (1e-6, 1e-11), torch.float32: (1e-5, 1e-8)}
 F32_SLACK = 200.0
@@ -179,6 +181,11 @@ def phase_kernels(dev):
                                  f"the plain version in {dt}: "
                                  f"{kit.tolist()} vs {pit.tolist()}")
         err = max(close(km, pm, dt, egm_tol), close(kc, pc, dt, egm_tol))
+        if not all(torch.equal(x, y) for x, y in ((km, pm), (kc, pc),
+                                                 (kdiff, pdiff))):
+            raise AssertionError(f"egm_policy_grid is not bitwise equal to "
+                                 f"its plain version in {dt} (max abs "
+                                 f"error {err})")
         for c in range(C):
             one = K.egm_policy_grid(*(t[c:c + 1] for t in egm_args[:6]),
                                     egm_tol)
@@ -186,23 +193,33 @@ def phase_kernels(dev):
                 if not torch.equal(x[0], y[c]):
                     raise AssertionError(f"egm_policy_grid lane {c}: C=1 is "
                                          f"not bitwise equal to C=12 ({dt})")
+        N, A = model.labor_levels.shape[1], model.a_grid.shape[1]
+        layout = K.egm_policy_grid_layout(N, A, dt)
         for x, y in zip(K.egm_policy_grid(*egm_args, force_global=True),
                         (km, kc, kit, kdiff)):
             if not torch.equal(x, y):
                 raise AssertionError(f"egm_policy_grid: the global-memory "
                                      f"layout is not bitwise equal to the "
-                                     f"shared-memory one ({dt})")
+                                     f"{layout} one ({dt})")
         rec = dict(dtype=str(dt), ok=True, max_abs_err=err,
                    iters=kit.tolist(), bitwise_c1_c12=True,
+                   bitwise_vs_plain=True, layout=layout,
                    bitwise_global_shared=True,
-                   kernel_ms=cuda_ms(lambda: K.egm_policy_grid(*egm_args)),
                    plain_ms=wall_ms(
                        lambda: K.egm_policy_grid_plain(*egm_args)))
+        rec["kernel_ms"], rec["global_ms"] = paired_ms(
+            lambda: K.egm_policy_grid(*egm_args),
+            lambda: K.egm_policy_grid(*egm_args, force_global=True))
+        steps = int(kit.max())         # the slowest lane sets the time
+        rec["ns_per_step"] = 1e6 * rec["kernel_ms"] / steps
+        rec["global_ns_per_step"] = 1e6 * rec["global_ms"] / steps
         rec["bound_ms"], rec["bound_by"] = egm_bound(dt, C, model, kit)
         c1 = int(kit.argmax())         # a single cell: the slowest lane
         one_args = tuple(t[c1:c1 + 1] for t in egm_args[:6]) + (egm_tol,)
-        rec["c1_lane"], rec["c1_ms"] = c1, cuda_ms(
-            lambda: K.egm_policy_grid(*one_args))
+        rec["c1_lane"] = c1
+        rec["c1_ms"], rec["c1_global_ms"] = paired_ms(
+            lambda: K.egm_policy_grid(*one_args),
+            lambda: K.egm_policy_grid(*one_args, force_global=True))
         rec["c1_plain_ms"] = wall_ms(
             lambda: K.egm_policy_grid_plain(*one_args))
         rec["c1_bound_ms"] = egm_bound(dt, 1, model, kit[c1:c1 + 1])[0]
@@ -305,6 +322,10 @@ def fused_kernel_check(dev, dt, grid):
                                  f"{a.tolist()} vs {b.tolist()}")
     err = max(close(km, ref[0], dt, egm_tol), close(kc, ref[1], dt, egm_tol),
               close(kd, ref[2], dt, dist_tol))
+    if not all(torch.equal(x, y) for x, y in zip(out, ref)):
+        raise AssertionError(f"fused_cell_grid is not bitwise equal to its "
+                             f"plain version ({dt}, {grid}; max abs error "
+                             f"{err})")
     for c in range(C):
         one = K.fused_cell_grid(*(t[c:c + 1] for t in args), **kw)
         for x, y in zip(one, out):
@@ -323,6 +344,7 @@ def fused_kernel_check(dev, dt, grid):
     rec = dict(dtype=str(dt), grid=grid, tail=tail, ok=True,
                max_abs_err=err, egm_iters=keit.tolist(),
                dist_iters=kdit.tolist(), bitwise_c1_c12=True,
+               bitwise_vs_plain=True,
                layout=layout, bitwise_global_shared=True,
                knots=(N, K_), dist_points=D, plain_ms=plain_ms)
     rec["kernel_ms"], rec["global_ms"] = paired_ms(
@@ -518,46 +540,84 @@ def phase_profile(dev, kernel="reference"):
 
 
 def phase_fine(dev):
-    """The fine configuration (A=1000, N=15, D=1000), one cell, float64:
-    the EGM kernel runs it on its global-memory workspace (its knots do
-    not fit one block's shared memory) with the plain version's step
-    count and values within F64_TOL; the distribution kernel, on that
-    policy, takes its global layout (420 KB of lottery alone) and matches
-    its plain version bitwise, both on the card."""
+    """The fine configuration (A=1000, N=15, D=1000), float64.  The EGM
+    lane (851 KB as one block) must take the cluster layout; on one cell
+    it matches its plain version bitwise and its global layout
+    (force_global) bitwise, both layouts timed in turns; at C=4 (four
+    prices) one launch equals four C=1 launches bitwise.  The distribution
+    kernel, on that policy, takes its global layout (420 KB of lottery
+    alone) and matches its plain version bitwise, both on the card.
+    Returns the EGM record."""
     from aiyagari_hark_tpu_torch.models import firm
     from aiyagari_hark_tpu_torch.models import household as H
     from aiyagari_hark_tpu_torch.ops import kernels as K
 
     dt = torch.float64
-    model = H.stack_models([H.build_simple_model(
-        labor_states=15, a_count=1000, dist_count=1000, labor_ar=0.6,
-        dtype=dt, device=dev)])
-    r = torch.tensor([0.04], dtype=dt, device=dev)
+    N, A = 15, 1000
+    base = H.build_simple_model(labor_states=N, a_count=A, dist_count=1000,
+                                labor_ar=0.6, dtype=dt, device=dev)
+    model1 = H.stack_models([base])
+    model = H.stack_models([base] * 4)
+    r = torch.tensor([0.04, 0.03, 0.035, 0.045], dtype=dt, device=dev)
     R, W = 1.0 + r, firm.wage_rate(firm.k_to_l_from_r(r, 0.36, 0.08), 0.36)
     p0 = H.initial_policy(model)
-    args = (p0.m_knots, p0.c_knots, model.a_grid, model.labor_levels,
-            model.transition, H._scalars(R, W, model, 0.96, 3.0), 1e-6)
+    args4 = (p0.m_knots, p0.c_knots, model.a_grid, model.labor_levels,
+             model.transition, H._scalars(R, W, model, 0.96, 3.0))
+    args = tuple(t[:1] for t in args4) + (1e-6,)
+    layout = K.egm_policy_grid_layout(N, A, dt)
+    if layout != "cluster":
+        raise AssertionError(f"the fine EGM lane takes the {layout} layout, "
+                             f"not the cluster one")
     lib = K._library("egm_policy_grid")
-    ws_bytes = int(lib.egm_policy_grid_workspace_bytes(15, 1000, 1))
-    if ws_bytes <= K.MAX_WORKSPACE_SHARED_BYTES:
-        raise AssertionError(f"the fine EGM workspace ({ws_bytes} bytes) "
-                             f"fits shared memory: this phase would not "
-                             f"test the global layout")
-    m, c, eit, ediff = K.egm_policy_grid(*args)
-    pm, pc, pit, _ = K.egm_policy_grid_plain(*args)
+    m, c, eit, ediff = out = K.egm_policy_grid(*args)
+    pm, pc, pit, pdiff = K.egm_policy_grid_plain(*args)
     if not torch.equal(eit, pit):
         raise AssertionError(f"fine egm_policy_grid step counts "
                              f"{eit.tolist()} vs plain {pit.tolist()}")
     egm_err = max(close(m, pm, dt, 1e-6), close(c, pc, dt, 1e-6))
-    egm_ms = cuda_ms(lambda: K.egm_policy_grid(*args), reps=2)
-    trans = H.wealth_transition(H.HouseholdPolicy(m, c), R, W, model)
-    dargs = (trans.idx, trans.weight, model.transition,
-             H.initial_distribution(model), 1e-11)
-    layout = K.stationary_lottery_grid_layout(1000, 15, dt)
-    if layout != "global":
-        raise AssertionError(f"the fine distribution lane takes the {layout} "
-                             f"layout: this phase would not test the global "
-                             f"one")
+    if not all(torch.equal(x, y) for x, y in zip(out, (pm, pc, pit, pdiff))):
+        raise AssertionError(f"fine egm_policy_grid is not bitwise equal to "
+                             f"its plain version (max abs error {egm_err})")
+    if not all(torch.equal(x, y) for x, y in zip(
+            K.egm_policy_grid(*args, force_global=True), out)):
+        raise AssertionError("fine egm_policy_grid: the cluster layout is "
+                             "not bitwise equal to the global one")
+    four = K.egm_policy_grid(*args4, 1e-6)
+    for lane in range(4):
+        one = K.egm_policy_grid(*(t[lane:lane + 1] for t in args4), 1e-6)
+        if not all(torch.equal(x[0], y[lane]) for x, y in zip(one, four)):
+            raise AssertionError(f"fine egm_policy_grid lane {lane}: C=1 is "
+                                 f"not bitwise equal to C=4")
+    steps = int(eit.max())
+    egm = dict(N=N, A=A, layout=layout, cluster_blocks=int(
+                   lib.egm_policy_grid_cluster_blocks(N)),
+               workspace_bytes=int(lib.egm_policy_grid_workspace_bytes(
+                   N, A, 1)),
+               cluster_block_bytes=int(lib.egm_policy_grid_cluster_bytes(
+                   N, A, 1)),
+               iters=eit.tolist(), diff=float(ediff[0]),
+               max_abs_err=egm_err, bitwise_vs_plain=True,
+               bitwise_global_cluster=True, bitwise_c1_c4=True,
+               c4_iters=four[2].tolist())
+    egm["kernel_ms"], egm["global_ms"] = paired_ms(
+        lambda: K.egm_policy_grid(*args),
+        lambda: K.egm_policy_grid(*args, force_global=True), reps=3)
+    egm["ns_per_step"] = 1e6 * egm["kernel_ms"] / steps
+    egm["global_ns_per_step"] = 1e6 * egm["global_ms"] / steps
+    egm["c4_ms"] = cuda_ms(lambda: K.egm_policy_grid(*args4, 1e-6), reps=3)
+    egm["plain_ms"] = wall_ms(lambda: K.egm_policy_grid_plain(*args))
+    egm["bound_ms"], egm["bound_by"] = egm_bound(dt, 1, model1, eit)
+    log("fine_egm", **egm)
+
+    trans = H.wealth_transition(H.HouseholdPolicy(m, c), R[:1], W[:1],
+                                model1)
+    dargs = (trans.idx, trans.weight, model1.transition,
+             H.initial_distribution(model1), 1e-11)
+    dlayout = K.stationary_lottery_grid_layout(1000, N, dt)
+    if dlayout != "global":
+        raise AssertionError(f"the fine distribution lane takes the "
+                             f"{dlayout} layout: this phase would not test "
+                             f"the global one")
     kd, kit, kdiff = K.stationary_lottery_grid(*dargs)
     t0 = time.perf_counter()
     pd, pit, pdiff = K.stationary_lottery_grid_plain(*dargs)
@@ -569,12 +629,11 @@ def phase_fine(dev):
     if not (torch.equal(kd, pd) and torch.equal(kdiff, pdiff)):
         raise AssertionError("fine stationary_lottery_grid is not bitwise "
                              "equal to its plain version")
-    log("fine", egm_policy_grid="ran", egm_workspace_bytes=ws_bytes,
-        egm_iters=eit.tolist(), egm_diff=float(ediff[0]),
-        egm_max_abs_err=egm_err, egm_kernel_ms=egm_ms,
-        stationary_lottery_grid="ran", layout=layout, iters=kit.tolist(),
-        bitwise_vs_plain=True, dist_plain_ms=dist_plain_ms,
+    log("fine", stationary_lottery_grid="ran", layout=dlayout,
+        iters=kit.tolist(), bitwise_vs_plain=True,
+        dist_plain_ms=dist_plain_ms,
         kernel_ms=cuda_ms(lambda: K.stationary_lottery_grid(*dargs), reps=2))
+    return egm
 
 
 def phase_cell(dev, golden, kernel="reference"):
@@ -655,7 +714,7 @@ def main() -> int:
                                        "compact")
     phase_profile(dev)
     phase_profile(dev, "fused")
-    phase_fine(dev)
+    fine_egm = phase_fine(dev)
     launches_c1 = phase_cell(dev, golden)
     launches_c1.update({k: v for k, v in phase_cell(dev, golden,
                                                     "fused").items() if v})
@@ -684,9 +743,11 @@ def main() -> int:
             "layout": r64.get("layout", "shared"),
             "global_ms": r64.get("global_ms"),
             "ns_per_step": r64.get("ns_per_step"),
+            "no_dist_ms": r64.get("no_dist_ms"),
             "variants": recs[1:],
             "shape": "C=12, N=7, A=32, D=500, float64",
         })
+    kernels[0]["fine"] = fine_egm
     kernels[-1]["launches_compact_f64"] = c_launches["fused_cell_grid"]
     kernels[-1]["over_egm_plus_dist"] = fused_over_parts(records)
     print(json.dumps({"kernels": kernels, "sweep_wall_s": {

@@ -31,6 +31,7 @@ from aiyagari_hark_tpu.ops.pallas_kernels import (
 )
 from aiyagari_hark_tpu_torch.carry import model_from_numpy
 from aiyagari_hark_tpu_torch.ops import kernels as K
+from aiyagari_hark_tpu_torch.ops.interp import _bracket
 
 torch.set_num_threads(1)
 TOL_KW = dict(rtol=1e-9, atol=1e-8)
@@ -209,17 +210,25 @@ def test_pairwise_sum_is_the_documented_tree(m):
     np.testing.assert_array_equal(_np(out), ref[0])
 
 
-def _chunked_pairwise_sum(x: np.ndarray, threads: int) -> np.ndarray:
-    """The distribution kernels' buffer-free pairwise sum
-    (``csrc/common.cuh``: ``chunk_pairwise``, ``warp_tree``,
-    ``tree_combine``) on each row of ``x`` [C, m], in ``x``'s dtype:
-    nt = min(threads, p) threads own p / nt contiguous leaves (zeros past
-    m), sum them by a binary counter, then warp shuffles join the nodes
-    (at offset o lane i adds lane i + o, or itself past lane 31), then the
-    warp partials the same way."""
+def _chunked_pairwise_sum(x: np.ndarray, threads: int,
+                          blocks: int = 1) -> np.ndarray:
+    """The kernels' buffer-free pairwise sum (``csrc/common.cuh``:
+    ``chunk_pairwise``, ``warp_tree``, ``tree_combine``; across a cluster,
+    ``csrc/egm_device.cuh``) on each row of ``x`` [C, m], in ``x``'s
+    dtype: of ``blocks`` blocks of ``threads`` threads, the first nb (a
+    power of two) hold nt = min(threads nb, p) threads that own p / nt
+    contiguous leaves each (zeros past m), sum them by a binary counter,
+    then warp shuffles join the nodes (at offset o lane i adds lane i + o,
+    or itself past lane 31), then each block's warp partials the same way,
+    then the blocks' partials in rank order the same way."""
     C, m = x.shape
     p = 1 << max(m - 1, 0).bit_length()
-    nt = min(threads, p)
+    gp = 1
+    while 2 * gp <= blocks:
+        gp *= 2
+    nt = min(threads * gp, p)
+    ntb = min(threads, nt)
+    nb = nt // ntb
     L = p // nt
     leaves = np.concatenate([x, np.zeros((C, p - m), x.dtype)], axis=1)
     chunks = leaves.reshape(C, nt, L)
@@ -231,8 +240,8 @@ def _chunked_pairwise_sum(x: np.ndarray, threads: int) -> np.ndarray:
             v = acc[lv] + v
             lv += 1
         acc[lv] = v
-    node = np.zeros((C, threads), x.dtype)   # threads past nt pass 0
-    node[:, :nt] = v
+    node = np.zeros((C, nb, threads), x.dtype)   # threads past nt pass 0
+    node[:, :, :ntb] = v.reshape(C, nb, ntb)
 
     def warp_tree(vals, width):              # vals [..., 32]
         o = 1
@@ -243,23 +252,110 @@ def _chunked_pairwise_sum(x: np.ndarray, threads: int) -> np.ndarray:
             o <<= 1
         return vals[..., 0]
 
-    part = warp_tree(node.reshape(C, threads // 32, 32), min(nt, 32))
-    nw = nt >> 5 if nt > 32 else 1
-    lanes = np.zeros((C, 32), x.dtype)
-    lanes[:, :nw] = part[:, :nw]
-    return warp_tree(lanes, nw)
+    part = warp_tree(node.reshape(C, nb, threads // 32, 32), min(ntb, 32))
+    nw = ntb >> 5 if ntb > 32 else 1
+    lanes = np.zeros((C, nb, 32), x.dtype)
+    lanes[:, :, :nw] = part[:, :, :nw]
+    block = warp_tree(lanes, nw)             # [C, nb]
+    ranks = np.zeros((C, 32), x.dtype)
+    ranks[:, :nb] = block
+    return warp_tree(ranks, nb)
+
+
+# threads of one block, or of a cluster: 2048 = 8 blocks of 256, 4096 =
+# 8 of 512 (the fine EGM lane), 2560 = 5 of 512 (N = 9 or 10 states)
+CLUSTERS = {2048: (256, 8), 2560: (512, 5), 4096: (512, 8)}
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
-@pytest.mark.parametrize("threads", [512, 1024])
-@pytest.mark.parametrize("m", [1, 7, 500, 3276, 3500, 15000])
+@pytest.mark.parametrize("threads", [512, 1024, 2048, 2560, 4096])
+@pytest.mark.parametrize("m", [1, 7, 500, 3276, 3500, 15000, 30030])
 def test_kernel_chunked_sum_is_the_pairwise_tree(m, threads, dtype):
     rng = np.random.default_rng(m + threads)
     x = rng.standard_normal((3, m)).astype(dtype)
-    out = _chunked_pairwise_sum(x, threads)
+    out = _chunked_pairwise_sum(x, *CLUSTERS.get(threads, (threads, 1)))
     ref = th.pairwise_sum(torch.from_numpy(x))
     assert out.dtype == dtype
     np.testing.assert_array_equal(out, _np(ref))
+
+
+def _walked_brackets(xp: np.ndarray, x: np.ndarray, run: int) -> np.ndarray:
+    """``csrc/egm_device.cuh``'s bracket search for rising queries ``x``
+    on knots ``xp`` [K]: each run of ``run`` queries finds its first
+    bracket by binary search, then walks it forward; the index is clipped
+    to [0, K-2]."""
+    K = xp.shape[0]
+    out = np.empty(x.shape[0], dtype=np.int64)
+    lo = 0
+    for i, q in enumerate(x):
+        if i % run == 0:
+            lo, hi = 0, K
+            while lo < hi:
+                mid = (lo + hi) >> 1
+                if xp[mid] <= q:
+                    lo = mid + 1
+                else:
+                    hi = mid
+        else:
+            while lo < K and xp[lo] <= q:
+                lo += 1
+        out[i] = min(max(lo - 1, 0), K - 2)
+    return out
+
+
+@pytest.mark.parametrize("run", [1, 4, 59])
+@pytest.mark.parametrize("K", [2, 33, 1001])
+def test_bracket_walk_is_clipped_searchsorted(K, run):
+    rng = np.random.default_rng(K * 100 + run)
+    xp = np.cumsum(rng.uniform(0.01, 2.0, K)) - 1.0      # strictly rising
+    q = np.concatenate([rng.uniform(xp[0] - 5.0, xp[-1] + 5.0, 3 * K),
+                        xp[rng.integers(0, K, K)],          # on the knots
+                        [xp[0] - 10.0, xp[-1] + 10.0]])
+    q = np.sort(q)
+    ref = _bracket(torch.from_numpy(xp), torch.from_numpy(q))
+    np.testing.assert_array_equal(_walked_brackets(xp, q, run), ref.numpy())
+
+
+@pytest.mark.parametrize("shared, cluster, force_global, layout", [
+    (13_064, 1_728, False, "shared"),          # N=7, A=32, f64
+    (K.MAX_WORKSPACE_SHARED_BYTES, 0, False, "shared"),
+    (850_760, 122_136, False, "cluster"),      # N=15, A=1000, f64
+    (K.MAX_WORKSPACE_SHARED_BYTES + 1, K.MAX_WORKSPACE_SHARED_BYTES, False,
+     "cluster"),
+    (K.MAX_WORKSPACE_SHARED_BYTES + 1, K.MAX_WORKSPACE_SHARED_BYTES + 1,
+     False, "global"),
+    (1_000_000, 2 ** 64 - 1, False, "global"),  # one state: no cluster
+    (13_064, 1_728, True, "global"),
+    (850_760, 122_136, True, "global"),
+])
+def test_egm_layout_is_chosen_by_size_alone(shared, cluster, force_global,
+                                            layout):
+    assert K.EGM_LAYOUTS[K._egm_layout(shared, cluster,
+                                       force_global)] == layout
+
+
+def test_egm_force_global_on_cpu_runs_the_plain_version(models):
+    jm, _ = models
+    args = [torch.tensor(a) for a in _egm_inputs(jm, PRICES)]
+    K.reset_launches()
+    for a, b in zip(K.egm_policy_grid(*args, 1e-6, force_global=True),
+                    K.egm_policy_grid_plain(*args, 1e-6)):
+        assert torch.equal(a, b)
+    assert K.LAUNCHES["egm_policy_grid"] == 0
+
+
+def test_egm_plain_matches_pallas_lane_grid_at_fifteen_states():
+    """The fine width's state count (N=15) on a narrow asset grid."""
+    jm = jh.build_simple_model(labor_states=15, a_count=48, dist_count=60)
+    args = _egm_inputs(jm, PRICES)
+    m, c, it, diff = egm_policy_pallas_grid(
+        *(jnp.asarray(a) for a in args), 1e-6, interpret=True)
+    tm, tc, tit, tdiff = K.egm_policy_grid_plain(
+        *(torch.tensor(a) for a in args), 1e-6)
+    assert tit.tolist() == np.asarray(it).tolist()
+    np.testing.assert_allclose(_np(tm), np.asarray(m), **TOL_KW)
+    np.testing.assert_allclose(_np(tc), np.asarray(c), **TOL_KW)
+    np.testing.assert_allclose(_np(tdiff), np.asarray(diff), rtol=1e-6)
 
 
 def test_force_global_on_cpu_runs_the_plain_version(models):
