@@ -2,8 +2,11 @@
 ``aiyagari_hark_tpu/ops/interp.py``).
 
 HARK ``LinearInterp`` semantics: linear between knots, linear
-extrapolation beyond both ends along the terminal segments.  The bracket
-index is ``clip(searchsorted(side="right") - 1, 0, K-2)``;
+extrapolation beyond both ends along the terminal segments; the two-level
+evaluation of the Krusell-Smith policies (``interp_on_interp``,
+``eval_policy_agents``) interpolates in ``m`` within the two bracketing
+M-columns, then linearly in ``M``.  The bracket index is
+``clip(searchsorted(side="right") - 1, 0, K-2)``;
 ``torch.searchsorted(..., right=True)`` gives the same count.
 """
 
@@ -18,10 +21,11 @@ def _bracket(xp: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def _lerp(x, xp, fp, i):
+    i1 = i + 1
     x0 = torch.gather(xp, -1, i)
-    x1 = torch.gather(xp, -1, i + 1)
+    x1 = torch.gather(xp, -1, i1)
     f0 = torch.gather(fp, -1, i)
-    f1 = torch.gather(fp, -1, i + 1)
+    f1 = torch.gather(fp, -1, i1)
     slope = (f1 - f0) / (x1 - x0)
     return f0 + slope * (x - x0)
 
@@ -43,6 +47,56 @@ def interp1d_rowwise(x: torch.Tensor, xp: torch.Tensor,
     xp = xp.contiguous()
     x = x.contiguous()
     return _lerp(x, xp, fp, _bracket(xp, x))
+
+
+def m_bracket(M, Mgrid: torch.Tensor):
+    """The two bracketing M-columns ``[j, j+1]`` of aggregate states ``M``
+    (a tensor of any shape, on the device: no host sync) and the weight
+    of column ``j+1``: ``cols`` [..., 2], ``w`` [...]; linear
+    extrapolation beyond both ends."""
+    M = torch.as_tensor(M, dtype=Mgrid.dtype, device=Mgrid.device)
+    j = _bracket(Mgrid, M.reshape(-1)).reshape(M.shape)
+    cols = j[..., None] + torch.arange(2, device=j.device)
+    g = Mgrid[cols]
+    w = (M - g[..., 0]) / (g[..., 1] - g[..., 0])
+    return cols, w
+
+
+def interp_on_interp(m: torch.Tensor, M, Mgrid: torch.Tensor,
+                     m_knots: torch.Tensor,
+                     f_knots: torch.Tensor) -> torch.Tensor:
+    """Two-level policy evaluation at one aggregate state ``M``: ``m``
+    [...] queries, ``Mgrid`` [Mc], knots [Mc, K].  Interpolates in ``m``
+    within the two bracketing M-columns, then linearly in ``M`` (the
+    reference's ``LinearInterpOnInterp1D``, ``Aiyagari_Support.py:
+    1512-1513``)."""
+    m = torch.as_tensor(m, dtype=m_knots.dtype, device=m_knots.device)
+    cols, w = m_bracket(M, Mgrid)
+    x = m.reshape(1, -1).expand(2, -1)
+    v = interp1d_rowwise(x, m_knots[cols], f_knots[cols])
+    return (v[0] + w * (v[1] - v[0])).reshape(m.shape)
+
+
+def eval_policy_columns(m: torch.Tensor, state_idx: torch.Tensor,
+                        cols: torch.Tensor, w, m_knots: torch.Tensor,
+                        f_knots: torch.Tensor) -> torch.Tensor:
+    """``eval_policy_agents`` with the M-bracket ``(cols, w)`` of
+    ``m_bracket`` already taken: both bracketing columns of every
+    agent's state are gathered and interpolated in one pass."""
+    xp = m_knots[state_idx[:, None], cols[None, :]]          # [N, 2, K]
+    fp = f_knots[state_idx[:, None], cols[None, :]]
+    v = interp1d_rowwise(m[:, None, None].expand(-1, 2, 1), xp, fp)[..., 0]
+    return v[:, 0] + w * (v[:, 1] - v[:, 0])
+
+
+def eval_policy_agents(m: torch.Tensor, state_idx: torch.Tensor, M,
+                       Mgrid: torch.Tensor, m_knots: torch.Tensor,
+                       f_knots: torch.Tensor) -> torch.Tensor:
+    """A state-indexed policy for a whole agent panel: ``m`` [N]
+    resources, ``state_idx`` [N] discrete states, ``M`` one aggregate
+    state (0-d tensor), knots [S, Mc, K]."""
+    cols, w = m_bracket(M, Mgrid)
+    return eval_policy_columns(m, state_idx, cols, w, m_knots, f_knots)
 
 
 def append_tail_knot(m_knots: torch.Tensor, c_knots: torch.Tensor, slope):

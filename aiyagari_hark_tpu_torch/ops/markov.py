@@ -1,7 +1,8 @@
 """Markov-chain numerics (port of ``aiyagari_hark_tpu/ops/markov.py``):
-the Tauchen discretization of the labor process and the stationary
+the Tauchen discretization of the labor process, the stationary
 distribution of a row-stochastic matrix (under the three precision
-policies).
+policies), and the Krusell-Smith aggregate, employment and composite
+transition matrices.
 """
 
 from __future__ import annotations
@@ -9,6 +10,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..utils.config import resolve_precision
@@ -102,3 +104,68 @@ def stationary_distribution(transition: torch.Tensor, iters: int = 2000,
             pi = pi @ transition
             pi = pi / torch.sum(pi)
     return pi
+
+
+_NP_DTYPES = {torch.float64: np.float64, torch.float32: np.float32}
+
+
+def aggregate_markov_matrix(dur_mean_b: float, dur_mean_g: float,
+                            dtype=torch.float32, device="cpu") -> torch.Tensor:
+    """2x2 aggregate (Bad/Good) transition matrix from mean state
+    durations (``Aiyagari_Support.py:1647-1651``): exit probability =
+    1 / duration."""
+    prob_bg = 1.0 / dur_mean_b
+    prob_gb = 1.0 / dur_mean_g
+    return torch.tensor([[1.0 - prob_bg, prob_bg],
+                         [prob_gb, 1.0 - prob_gb]], dtype=dtype,
+                        device=device)
+
+
+def employment_markov_matrix(dur_mean_b: float, dur_mean_g: float,
+                             spell_mean_b: float, spell_mean_g: float,
+                             urate_b: float, urate_g: float,
+                             rel_prob_bg: float, rel_prob_gb: float,
+                             dtype=torch.float32,
+                             device="cpu") -> torch.Tensor:
+    """4x4 joint (aggregate x employment) transition matrix, the
+    Krusell-Smith calibration identities (``Aiyagari_Support.py:1655-1683``).
+
+    Row/column order: (Bad-Unemp, Bad-Emp, Good-Unemp, Good-Emp).  The
+    entries are set one after another in the matrix's dtype, each later
+    one reading the stored (rounded) earlier ones, as the JAX package's
+    ``.at[].set`` sequence does."""
+    prob_bg = 1.0 / dur_mean_b
+    prob_gb = 1.0 / dur_mean_g
+    prob_bb = 1.0 - prob_bg
+    prob_gg = 1.0 - prob_gb
+
+    m = np.zeros((4, 4), dtype=_NP_DTYPES[dtype])
+    # Bad -> Bad quadrant: leave unemployment with prob 1/spell length.
+    m[0, 1] = prob_bb / spell_mean_b
+    m[0, 0] = prob_bb * (1.0 - 1.0 / spell_mean_b)
+    m[1, 0] = urate_b / (1.0 - urate_b) * m[0, 1]
+    m[1, 1] = prob_bb - m[1, 0]
+    # Good -> Good quadrant.
+    m[2, 3] = prob_gg / spell_mean_g
+    m[2, 2] = prob_gg * (1.0 - 1.0 / spell_mean_g)
+    m[3, 2] = urate_g / (1.0 - urate_g) * m[2, 3]
+    m[3, 3] = prob_gg - m[3, 2]
+    # Bad -> Good quadrant.
+    m[0, 2] = rel_prob_bg * m[2, 2] / prob_gg * prob_bg
+    m[0, 3] = prob_bg - m[0, 2]
+    m[1, 2] = (prob_bg * urate_g - urate_b * m[0, 2]) / (1.0 - urate_b)
+    m[1, 3] = prob_bg - m[1, 2]
+    # Good -> Bad quadrant.
+    m[2, 0] = rel_prob_gb * m[0, 0] / prob_bb * prob_gb
+    m[2, 1] = prob_gb - m[2, 0]
+    m[3, 0] = (prob_gb * urate_b - urate_g * m[2, 0]) / (1.0 - urate_g)
+    m[3, 1] = prob_gb - m[3, 0]
+    return torch.as_tensor(m, device=device)
+
+
+def full_idiosyncratic_matrix(tauchen_transition: torch.Tensor,
+                              employment_matrix: torch.Tensor) -> torch.Tensor:
+    """[4N, 4N] composite transition matrix ``kron(P_tauchen, P_empl)``:
+    labor-state-major, employment-minor ordering (the reference's 49
+    literal AuxMatrix blocks, ``Aiyagari_Support.py:1712-1780``)."""
+    return torch.kron(tauchen_transition, employment_matrix)

@@ -5,6 +5,7 @@ ordered by severity so the worst status of a composite solve is the
 elementwise maximum (``combine_status``).
 
     CONVERGED (0) < STALLED (1) < MAX_ITER (2) < NONFINITE (3)
+    < INTERRUPTED (4, process-level: a run stopped on a shutdown request)
 
 ``classify_fixed_point_exit`` rebuilds a loop's status from its exit
 state ``(diff, iters)``; the CUDA kernels return only that pair, exactly
@@ -24,8 +25,13 @@ CONVERGED = 0
 STALLED = 1
 MAX_ITER = 2
 NONFINITE = 3
+# Process-level, never returned by a loop: a run stopped at a safe
+# boundary on a shutdown request (``utils.resilience.Interrupted``); no
+# numbers were produced, so it sits on the failure side of ``is_failure``.
+INTERRUPTED = 4
 
-STATUS_NAMES = ("CONVERGED", "STALLED", "MAX_ITER", "NONFINITE")
+STATUS_NAMES = ("CONVERGED", "STALLED", "MAX_ITER", "NONFINITE",
+                "INTERRUPTED")
 
 # Notes, not status codes (they never enter ``combine_status``): a ladder's
 # cheap phase exited NONFINITE or STALLED and the polish restarted from
@@ -81,6 +87,18 @@ def is_failure(status):
     """True where a status means the result is uncertified or garbage
     (``MAX_ITER`` or ``NONFINITE``); ``STALLED`` is benign."""
     return status >= MAX_ITER
+
+
+class SolverDivergenceError(RuntimeError):
+    """A solve produced an uncertified or non-finite result.  Carries
+    ``status`` (the worst status code observed) and ``trail`` (a list of
+    per-stage or per-iteration dicts of what was tried and how each
+    attempt exited)."""
+
+    def __init__(self, message: str, status=None, trail=None):
+        super().__init__(message)
+        self.status = None if status is None else int(status)
+        self.trail = list(trail) if trail is not None else []
 
 
 def _map_fields(fn, x):

@@ -1,7 +1,8 @@
-"""Solver policies and the sweep configuration the port runs (port of the
-precision, grid, kernel and state policies, the packed row layout and
-``SweepConfig`` of ``aiyagari_hark_tpu/utils/config.py``; a copy, not an
-import).
+"""Configurations and solver policies the port runs (port of
+``aiyagari_hark_tpu/utils/config.py``; a copy, not an import): the
+Krusell-Smith path's ``AgentConfig`` / ``EconomyConfig`` (reference key
+spelling through ``from_reference_dict``), the precision, grid, kernel
+and state policies, the packed row layout and ``SweepConfig``.
 
 Precision policy: ``"reference"`` runs every fixed point in the model
 dtype; ``"mixed"`` runs a descent in the cheap dtype (float32 for a
@@ -29,6 +30,152 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
+
+# The reference's MgridBase (Aiyagari_Support.py:755-756): multiples of the
+# steady-state aggregate market resources at which the aggregate state is
+# gridded, clustered around 1.0.
+MGRID_BASE_DEFAULT: Tuple[float, ...] = (
+    0.1, 0.3, 0.6, 0.8, 0.9, 0.95, 0.98, 1.0, 1.02, 1.05, 1.1, 1.2, 1.6, 2.0,
+    3.0,
+)
+
+# The reference's parameter-dict spelling -> the dataclass fields.
+_AGENT_KEY_MAP = {
+    "LaborStatesNo": "labor_states",
+    "LaborAR": "labor_ar",
+    "LaborSD": "labor_sd",
+    "DiscFac": "disc_fac",
+    "CRRA": "crra",
+    "LbrInd": "lbr_ind",
+    "aMin": "a_min",
+    "aMax": "a_max",
+    "aCount": "a_count",
+    "aNestFac": "a_nest_fac",
+    "AgentCount": "agent_count",
+    "MgridBase": "mgrid_base",
+}
+
+_ECONOMY_KEY_MAP = {
+    "verbose": "verbose",
+    "LaborStatesNo": "labor_states",
+    "LaborAR": "labor_ar",
+    "LaborSD": "labor_sd",
+    "act_T": "act_T",
+    "T_discard": "t_discard",
+    "DampingFac": "damping_fac",
+    "intercept_prev": "intercept_prev",
+    "slope_prev": "slope_prev",
+    "DiscFac": "disc_fac",
+    "CRRA": "crra",
+    "LbrInd": "lbr_ind",
+    "ProdB": "prod_b",
+    "ProdG": "prod_g",
+    "CapShare": "cap_share",
+    "DeprFac": "depr_fac",
+    "DurMeanB": "dur_mean_b",
+    "DurMeanG": "dur_mean_g",
+    "SpellMeanB": "spell_mean_b",
+    "SpellMeanG": "spell_mean_g",
+    "UrateB": "urate_b",
+    "UrateG": "urate_g",
+    "RelProbBG": "rel_prob_bg",
+    "RelProbGB": "rel_prob_gb",
+    "MrkvNow_init": "mrkv_now_init",
+    "tolerance": "tolerance",
+}
+
+
+@dataclass(frozen=True)
+class AgentConfig:
+    """Household-side parameters of the Krusell-Smith path.  Defaults
+    mirror ``init_Aiyagari_agents`` (``Aiyagari_Support.py:752-757``)."""
+
+    labor_states: int = 7
+    labor_ar: float = 0.6
+    labor_sd: float = 0.2
+    labor_bound: float = 3.0
+    disc_fac: float = 0.96
+    crra: float = 1.0
+    lbr_ind: float = 1.0
+    a_min: float = 0.001
+    a_max: float = 50.0
+    a_count: int = 32
+    a_nest_fac: int = 2
+    agent_count: int = 140
+    mgrid_base: Tuple[float, ...] = MGRID_BASE_DEFAULT
+
+    @classmethod
+    def from_reference_dict(cls, d: dict) -> "AgentConfig":
+        kwargs = {}
+        for ref_key, our_key in _AGENT_KEY_MAP.items():
+            if ref_key in d:
+                v = d[ref_key]
+                if our_key == "mgrid_base":
+                    v = tuple(float(x) for x in v)
+                kwargs[our_key] = v
+        return cls(**kwargs)
+
+    def replace(self, **kwargs) -> "AgentConfig":
+        return dataclasses.replace(self, **kwargs)
+
+
+@dataclass(frozen=True)
+class EconomyConfig:
+    """Economy-side parameters.  Defaults mirror ``init_Aiyagari_economy``
+    (``Aiyagari_Support.py:1525-1551``) plus the ``tolerance`` ctor kwarg
+    (``Aiyagari_Support.py:1574``)."""
+
+    verbose: bool = True
+    labor_states: int = 7
+    labor_ar: float = 0.6
+    labor_sd: float = 0.2
+    labor_bound: float = 3.0
+    act_T: int = 11000
+    t_discard: int = 1000
+    damping_fac: float = 0.5
+    intercept_prev: Tuple[float, float] = (0.0, 0.0)
+    slope_prev: Tuple[float, float] = (1.0, 1.0)
+    disc_fac: float = 0.96
+    crra: float = 1.0
+    lbr_ind: float = 1.0
+    prod_b: float = 1.0
+    prod_g: float = 1.0
+    cap_share: float = 0.36
+    depr_fac: float = 0.08
+    dur_mean_b: float = 8.0
+    dur_mean_g: float = 8.0
+    spell_mean_b: float = 2.5
+    spell_mean_g: float = 1.5
+    urate_b: float = 0.0
+    urate_g: float = 0.0
+    rel_prob_bg: float = 0.75
+    rel_prob_gb: float = 1.25
+    mrkv_now_init: int = 0
+    tolerance: float = 0.01
+    max_loops: int = 40
+
+    @classmethod
+    def from_reference_dict(cls, d: dict) -> "EconomyConfig":
+        kwargs = {}
+        for ref_key, our_key in _ECONOMY_KEY_MAP.items():
+            if ref_key in d:
+                v = d[ref_key]
+                if our_key in ("intercept_prev", "slope_prev"):
+                    v = tuple(float(x) for x in v)
+                kwargs[our_key] = v
+        return cls(**kwargs)
+
+    def replace(self, **kwargs) -> "EconomyConfig":
+        return dataclasses.replace(self, **kwargs)
+
+
+def notebook_run_configs() -> Tuple[AgentConfig, EconomyConfig]:
+    """The configuration of the reference's executed notebook run (cells
+    16-17): LaborAR=0.3, LaborSD=0.2, CRRA=1.0, AgentCount=350."""
+    agent = AgentConfig(labor_ar=0.3, labor_sd=0.2, crra=1.0, agent_count=350)
+    econ = EconomyConfig(labor_ar=0.3, labor_sd=0.2, crra=1.0)
+    return agent, econ
+
 
 PRECISION_POLICIES = ("reference", "mixed", "fast")
 

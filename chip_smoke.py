@@ -76,6 +76,22 @@ Phases (each raises on failure, and the script then exits non-zero):
      per family a NaN cell recovered by quarantine (the others bitwise
      unchanged), a clean full recheck, certification (CERTIFIED or
      MARGINAL), each run's launches counted.
+ 11. the notebook's Krusell-Smith path (float64, the notebook's width:
+     notebook_run_configs(), AgentCount=350, a_count=32, the default
+     M-grid, act_T=11000, dist_count=500; tests/data/torch_ks_golden.json
+     from the JAX package): AiyagariEconomy.solve(sim_method=
+     "distribution") on JAX's chain against the golden (outer iterations
+     equal, AFunc, r*, saving rate and den Haan within KS_TOL); the same
+     solve interrupted after outer iteration 2 by the interrupt guard and
+     resumed from its checkpoint, its final rule and history bitwise the
+     uninterrupted run's; float32 (r* within 1 bp of the golden, its gap
+     to JAX's float32); the panel engine (seed 1, make_Mrkv_history,
+     solve()) converged with r* within 0.2 pp of the golden's; a true-KS
+     panel's employment counts bitwise the exact-count recursion; the
+     panel at the wealth study's fixed rule inside |z| <= 3 of its
+     32-seed band; launches per period and the device's idle share under
+     torch.profiler; the host syncs of each outer iteration (the f64
+     histogram and the panel solves run under the sync debug mode).
 Every phase line carries the card's name and power limit.  The line
 before the last two holds the kernels' JSON record; then the card's name
 and power limit from nvidia-smi; the last line is the result.
@@ -1397,6 +1413,368 @@ def phase_families(dev, table2):
     return records, launches
 
 
+KS_GOLDEN = os.path.join(HERE, "tests", "data", "torch_ks_golden.json")
+WEALTH_STUDY = os.path.join(HERE, "tests", "data", "wealth_seed_study.json")
+# The notebook run's width (notebook_run_configs(), AgentCount=350,
+# a_count=32, the default M-grid, act_T=11000) and the histogram's points.
+KS_WIDTH = dict(act_T=11000, T_discard=1000, dist_count=500, agents=350)
+# The pinned-histogram solve against JAX's, absolute: tests/test_torch_ks.py
+# holds the CPU gaps (~1e-12) to these; the card sums in other orders over
+# a longer horizon.
+KS_TOL = dict(intercept=1e-9, r_star_pct=1e-7, saving_rate_pct=1e-6,
+              den_haan_pct=1e-6)
+KS_F32_R_PCT = 1e-2     # float32 r* within 1 bp of the float64 golden
+KS_PANEL_R_PP = 0.2     # the panel's r* within 0.2 pp of the golden's
+KS_BAND_Z = 3.0         # the fixed-rule panel inside the 32-seed band
+# A true-KS calibration (Krusell-Smith 1998's unemployment rates) whose
+# exact-count employment moves every period.
+KS_EMPLOYMENT = dict(urate_b=0.10, urate_g=0.04, prod_b=0.99, prod_g=1.01)
+
+
+def ks_check(ok, what):
+    if not ok:
+        raise AssertionError(f"ks: {what}")
+
+
+def _ks_economy(dev, seed: int, **econ_updates):
+    """The notebook's economy and agent through the facade (cells 16-18:
+    LaborAR=0.3, LaborSD=0.2, CRRA=1.0, AgentCount=350)."""
+    from aiyagari_hark_tpu_torch import (AiyagariEconomy, AiyagariType,
+                                         init_aiyagari_agents,
+                                         init_aiyagari_economy)
+
+    econ_dict = init_aiyagari_economy()
+    econ_dict.update(LaborAR=0.3, LaborSD=0.2, CRRA=1.0, verbose=False,
+                     act_T=KS_WIDTH["act_T"], T_discard=KS_WIDTH["T_discard"],
+                     **econ_updates)
+    agent_dict = init_aiyagari_agents()
+    agent_dict.update(AgentCount=KS_WIDTH["agents"])
+    economy = AiyagariEconomy(seed=seed, device=dev, **econ_dict)
+    agent = AiyagariType(**agent_dict)
+    agent.cycles = 0
+    agent.get_economy_data(economy)
+    economy.agents = [agent]
+    return economy
+
+
+def _ks_readout(economy, sol) -> dict:
+    """r*, the saving rate and den Haan's errors, as reproduce.py reads
+    them."""
+    from aiyagari_hark_tpu_torch.models.diagnostics import den_haan_forecast
+
+    depr = economy.DeprFac
+    if "aNowGrid" in economy.reap_state:
+        a_mean = float(np.average(economy.reap_state["aNowGrid"][0],
+                                  weights=economy.reap_state["aNowWeights"][0]))
+    else:
+        a_mean = float(np.mean(economy.reap_state["aNow"][0]))
+    dh = den_haan_forecast(sol, t_start=KS_WIDTH["T_discard"])
+    return {"r_star_pct": (economy.sow_state["Rnow"] - 1.0) * 100.0,
+            "saving_rate_pct": 100.0 * depr * a_mean / (
+                economy.sow_state["Mnow"] - (1.0 - depr) * a_mean),
+            "den_haan_max_error_pct": float(dh.max_error_pct),
+            "den_haan_mean_error_pct": float(dh.mean_error_pct)}
+
+
+def _ks_solve(dev, dt, chain=None, seed=1, economy_kw=None, **kw):
+    """One ``AiyagariEconomy.solve()`` on the card (the chain injected, or
+    drawn by ``make_Mrkv_history``): (economy, solution, phase walls,
+    whole wall)."""
+    from aiyagari_hark_tpu_torch.utils.timing import PhaseTimer
+
+    economy = _ks_economy(dev, seed, **(economy_kw or {}))
+    if chain is None:
+        economy.make_Mrkv_history()
+    else:
+        economy.MrkvNow_hist = chain
+    timer = PhaseTimer()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sol = economy.solve(dtype=dt, timer=timer, **kw)
+    torch.cuda.synchronize()
+    return economy, sol, timer.report(), time.perf_counter() - t0
+
+
+def _synced_solve(dev, dt, chain=None, **kw):
+    """``_ks_solve`` under ``torch.cuda.set_sync_debug_mode("warn")``,
+    the implicit host syncs counted between outer iterations (at each
+    iteration's callback; the first count includes the solve's set-up).
+    An explicit ``torch.cuda.synchronize`` is not counted.  Returns
+    ``_ks_solve``'s tuple and the syncs of each outer iteration."""
+    torch.cuda.synchronize()
+    marks = []
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+
+            def mark(rec):
+                marks.append(sum("synchroniz" in str(x.message) for x in w))
+
+            out = _ks_solve(dev, dt, chain, callback=mark, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return out, np.diff([0] + marks).tolist()
+
+
+def _device_profile(fn):
+    """``fn()`` under torch.profiler: (kernels launched, device busy
+    seconds, profiled wall seconds)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    launched = sum(1 for e in kernels
+                   if not e.name.startswith(("Memcpy", "Memset")))
+    busy = sum(e.device_time for e in kernels) * 1e-6
+    return launched, busy, wall
+
+
+def _employment_counts(cal, chain: torch.Tensor, agents: int):
+    """The exact-count employment recursion on the host (float64, the
+    calibration's own matrices): the employed count of every period."""
+    c = [t.cpu() for t in (cal.agg_transition, cal.empl_transition,
+                           cal.urate_by_agg)]
+    agg, empl, urate = c
+    z = chain.cpu().tolist()
+    n_emp = agents - int(torch.round(urate[z[0]] * agents))
+    prev, counts = z[0], []
+    for now in z:
+        p_agg = agg[prev, now]
+        p_ue = empl[2 * prev, 2 * now + 1] / p_agg
+        p_eu = empl[2 * prev + 1, 2 * now] / p_agg
+        fire = int(torch.round(torch.tensor(float(n_emp)) * p_eu))
+        hire = int(torch.round(torch.tensor(float(agents - n_emp)) * p_ue))
+        n_emp = n_emp - fire + hire
+        counts.append(n_emp)
+        prev = now
+    return counts
+
+
+def phase_ks(dev):
+    """Phase 11, the notebook's Krusell-Smith path on the card at full
+    width, float64 unless named: the pinned-histogram engine on JAX's chain
+    against tests/data/torch_ks_golden.json, interrupted after outer
+    iteration 2 and resumed (final rule and history bitwise the
+    uninterrupted run's), float32; the panel engine through
+    ``AiyagariEconomy.solve()`` (converged, r* near the golden's), the
+    exact employment counts of a true-KS panel, the panel at the wealth
+    study's fixed rule against its 32-seed band; launches per period,
+    host syncs per outer iteration, the device's idle share."""
+    from aiyagari_hark_tpu_torch.models import ks_model, simulate
+    from aiyagari_hark_tpu_torch.models.ks_model import AFuncParams
+    from aiyagari_hark_tpu_torch.ops import kernels as K
+    from aiyagari_hark_tpu_torch.utils import stats
+    from aiyagari_hark_tpu_torch.utils.config import notebook_run_configs
+    from aiyagari_hark_tpu_torch.utils.resilience import (Interrupted,
+                                                          preemption_guard,
+                                                          request_interrupt)
+
+    f64 = torch.float64
+    with open(KS_GOLDEN) as f:
+        golden = json.load(f)
+    T = KS_WIDTH["act_T"]
+    chain = np.asarray([int(c) for c in golden["mrkv_hist"][:T]], np.int64)
+    g64 = golden["float64"]
+    hist_kw = dict(sim_method="distribution",
+                   dist_count=KS_WIDTH["dist_count"])
+    K.reset_launches()
+
+    # 11a. the deterministic engine against JAX
+    (econ_a, sol_a, phases_a, wall_a), syncs_a = _synced_solve(
+        dev, f64, chain, **hist_kw)
+    out_a = _ks_readout(econ_a, sol_a)
+    icpt = sol_a.afunc.intercept.cpu()
+    gaps = {"intercept": float((icpt - torch.tensor(
+                g64["afunc_intercept"], dtype=f64)).abs().max()),
+            "slope": float(sol_a.afunc.slope.cpu().abs().max()),
+            "r_star_pct": abs(out_a["r_star_pct"] - g64["r_star_pct"]),
+            "saving_rate_pct": abs(out_a["saving_rate_pct"]
+                                   - g64["saving_rate_pct"]),
+            "den_haan_pct": max(
+                abs(out_a["den_haan_max_error_pct"]
+                    - g64["den_haan_max_error_pct"]),
+                abs(out_a["den_haan_mean_error_pct"]
+                    - g64["den_haan_mean_error_pct"]))}
+    ks_check(sol_a.converged, "the pinned histogram solve did not converge")
+    ks_check(len(sol_a.records) == g64["outer_iterations"],
+             f"{len(sol_a.records)} outer iterations against JAX's "
+             f"{g64['outer_iterations']}")
+    ks_check(gaps["slope"] == 0.0, "the pinned rule has a slope")
+    for k, tol in KS_TOL.items():
+        ks_check(gaps[k] <= tol, f"{k} is {gaps[k]} from JAX's, above {tol}")
+    log("ks_histogram", dtype="float64", wall_s=wall_a, phases_s=phases_a,
+        outer_iterations=len(sol_a.records),
+        iteration_walls_s=[r.wall_seconds for r in sol_a.records],
+        egm_iters=[r.egm_iters for r in sol_a.records],
+        host_syncs_per_iteration=syncs_a,
+        intercept=icpt.tolist(), **out_a, gaps_to_jax=gaps, tolerances=KS_TOL,
+        jax_cpu_solve_s=g64["jax_cpu_solve_seconds"])
+
+    # 11b. interrupted after outer iteration 2, resumed from the
+    # checkpoint: bitwise the uninterrupted run (rule and history, so this
+    # is also the run-to-run determinism check)
+    import tempfile
+
+    def stop_after_two(rec):
+        if rec.iteration == 1:
+            request_interrupt()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "ks.npz")
+        stopped = None
+        try:
+            with preemption_guard():
+                _ks_solve(dev, f64, chain, checkpoint_path=ck,
+                          callback=stop_after_two, **hist_kw)
+        except Interrupted as e:
+            stopped = e.progress
+        ks_check(stopped is not None and stopped["iteration"] == 2,
+                 f"the interrupt stopped at {stopped}")
+        _, sol_b, phases_b, wall_b = _ks_solve(dev, f64, chain,
+                                               checkpoint_path=ck, **hist_kw)
+    same_rule = all(torch.equal(a.cpu(), b.cpu())
+                    for a, b in zip(sol_a.afunc, sol_b.afunc))
+    same_hist = torch.equal(sol_a.history.A_prev.cpu(),
+                            sol_b.history.A_prev.cpu())
+    ks_check(same_rule, "the resumed rule is not bitwise the uninterrupted")
+    ks_check(same_hist, "the resumed history.A_prev is not bitwise the "
+             "uninterrupted run's")
+    ks_check([r.iteration for r in sol_b.records]
+             == list(range(2, len(sol_a.records))),
+             f"resumed iterations {[r.iteration for r in sol_b.records]}")
+    log("ks_resume", interrupted_at=stopped, resumed_wall_s=wall_b,
+        resumed_phases_s=phases_b, resumed_iterations=len(sol_b.records),
+        afunc_bitwise=same_rule, history_bitwise=same_hist)
+
+    # 11c. float32: the r* gap against the float64 golden and JAX's f32
+    econ_c, sol_c, phases_c, wall_c = _ks_solve(dev, torch.float32, chain,
+                                                **hist_kw)
+    out_c = _ks_readout(econ_c, sol_c)
+    gap32 = abs(out_c["r_star_pct"] - g64["r_star_pct"])
+    ks_check(gap32 <= KS_F32_R_PCT, f"f32 r* {gap32} pct from the golden")
+    log("ks_histogram", dtype="float32", wall_s=wall_c, phases_s=phases_c,
+        outer_iterations=len(sol_c.records), converged=sol_c.converged,
+        **out_c, r_gap_to_f64_golden_pct=gap32,
+        r_gap_to_jax_f32_pct=abs(out_c["r_star_pct"]
+                                 - golden["float32"]["r_star_pct"]),
+        jax_f32_outer_iterations=golden["float32"]["outer_iterations"])
+
+    # 11d. the panel engine: AiyagariEconomy(seed=1) -> make_Mrkv_history
+    # -> solve(), the notebook's own pipeline
+    (econ_d, sol_d, phases_d, wall_d), syncs_d = _synced_solve(dev, f64,
+                                                               seed=1)
+    out_d = _ks_readout(econ_d, sol_d)
+    dr = abs(out_d["r_star_pct"] - g64["r_star_pct"])
+    ks_check(sol_d.converged, "the panel solve did not converge")
+    ks_check(dr <= KS_PANEL_R_PP, f"panel r* {out_d['r_star_pct']} is {dr} "
+             f"pp from the golden's")
+    urate = sol_d.history.urate.cpu()
+    ks_check(bool((urate == 0.0).all()), "a nonzero unemployment rate at "
+             "UrateB = UrateG = 0")
+    log("ks_panel", wall_s=wall_d, phases_s=phases_d,
+        outer_iterations=len(sol_d.records),
+        iteration_walls_s=[r.wall_seconds for r in sol_d.records],
+        egm_iters=[r.egm_iters for r in sol_d.records],
+        host_syncs_per_iteration=syncs_d,
+        intercept=sol_d.afunc.intercept.cpu().tolist(),
+        slope=sol_d.afunc.slope.cpu().tolist(), **out_d,
+        r_gap_to_golden_pp=dr, wealth_stats=stats.wealth_stats(
+            econ_d.reap_state["aNow"][0])._asdict())
+
+    # the exact employment counts of a true-KS panel
+    agent, econ = notebook_run_configs()
+    cal_ks = ks_model.build_ks_calibration(
+        agent, econ.replace(**KS_EMPLOYMENT), ks_employment=True, dtype=f64,
+        device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    ks_chain = torch.as_tensor(chain[:2000], device=dev)
+    init = simulate.initial_panel(cal_ks, KS_WIDTH["agents"], int(chain[0]),
+                                  g)
+    hist_e, _ = simulate.simulate_panel(ks_model.initial_ks_policy(cal_ks),
+                                        cal_ks, ks_chain, init, g)
+    want = _employment_counts(cal_ks, ks_chain, KS_WIDTH["agents"])
+    got = torch.round((1.0 - hist_e.urate.cpu()) * KS_WIDTH["agents"])
+    want_urate = 1.0 - torch.tensor(want, dtype=f64) / KS_WIDTH["agents"]
+    ks_check(got.long().tolist() == want, "employment counts differ from "
+             "the exact-count recursion")
+    ks_check(torch.equal(hist_e.urate.cpu(), want_urate), "urate is not "
+             "1 - count / agents bit for bit")
+    log("ks_employment_counts", periods=len(want),
+        counts_min_max=[min(want), max(want)], equal=True)
+
+    # the panel at the wealth study's fixed rule, against its 32-seed band
+    with open(WEALTH_STUDY) as f:
+        study = json.load(f)
+    cal = ks_model.build_ks_calibration(agent, econ, dtype=f64, device=dev)
+    rule = AFuncParams(*(torch.tensor(study["policy_afunc"][k], dtype=f64,
+                                      device=dev)
+                         for k in ("intercept", "slope")))
+    policy = ks_model.solve_ks_household(rule, cal)[0]
+    study_chain = torch.as_tensor(_ks_economy(dev, 0).make_Mrkv_history(),
+                                  device=dev)
+    g.manual_seed(12345)
+    init = simulate.initial_panel(cal, KS_WIDTH["agents"], 0, g)
+    _, final = simulate.simulate_panel(policy, cal, study_chain, init, g)
+    assets = final.assets.cpu().numpy()
+    ws = stats.wealth_stats(assets)._asdict()
+    ws["lorenz_vs_scf"] = stats.lorenz_distance_vs_scf(assets)
+    z = {k: (ws[k] - study["band"][k]["mean"]) / study["band"][k]["std"]
+         for k in ws}
+    ks_check(all(abs(v) <= KS_BAND_Z for v in z.values()),
+             f"fixed-rule panel outside the band: z = {z}")
+    log("ks_fixed_rule_panel", stats=ws, z=z)
+
+    # launches per period and the idle share (11a and 11d counted the
+    # host syncs of each outer iteration)
+    launches_ks = dict(K.LAUNCHES)
+    ks_check(not any(launches_ks.values()), f"the KS path launched "
+             f"{launches_ks}")
+    fixed_K = torch.exp(sol_a.afunc.intercept[0])
+    grid = sol_a.dist_grid
+    ch = torch.as_tensor(chain, device=dev)
+    per = {}
+    runs = {
+        "histogram_pinned": lambda n: simulate.simulate_distribution_history(
+            sol_a.policy, sol_a.calibration, ch[:n], grid, fixed_K=fixed_K),
+        "panel": lambda n: simulate.simulate_panel(
+            sol_d.policy, sol_d.calibration, ch[:n],
+            simulate.initial_panel(sol_d.calibration, KS_WIDTH["agents"], 0,
+                                   torch.Generator(device=dev).manual_seed(3)),
+            torch.Generator(device=dev).manual_seed(4)),
+    }
+    for name, run in runs.items():
+        short, busy_s, wall_s_ = _device_profile(lambda: run(100))
+        long_, busy_l, wall_l = _device_profile(lambda: run(1100))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(1100)
+        torch.cuda.synchronize()
+        plain = time.perf_counter() - t0
+        per[name] = {"launches_per_period": (long_ - short) / 1000.0,
+                     "device_busy_s_1100": busy_l,
+                     "profiled_wall_s_1100": wall_l,
+                     "unprofiled_wall_s_1100": plain,
+                     "ms_per_period": 1e3 * plain / 1100,
+                     "idle_share_profiled": 1.0 - busy_l / wall_l,
+                     "idle_share_unprofiled": 1.0 - busy_l / plain}
+    egm_l, egm_busy, egm_wall = _device_profile(
+        lambda: ks_model.solve_ks_household(sol_a.afunc, sol_a.calibration))
+    per["egm_solve"] = {"launches": egm_l, "device_busy_s": egm_busy,
+                        "profiled_wall_s": egm_wall,
+                        "idle_share_profiled": 1.0 - egm_busy / egm_wall}
+    log("ks_launches_idle", per=per, kernel_launches_ks_path=launches_ks)
+    return launches_ks
+
+
 def main() -> int:
     global CARD
     if not torch.cuda.is_available():
@@ -1453,6 +1831,7 @@ def main() -> int:
     phase_illinois(dev, golden)
     engine = phase_engine(dev, golden, sweeps)
     fam_records, families = phase_families(dev, golden)
+    launches_ks = phase_ks(dev)
     for name in PATH_KERNELS["fused"]:
         launches[name] = f_launches[name]
         launches32[name] = f_launches32[name]
@@ -1504,6 +1883,10 @@ def main() -> int:
                                   for run, n in families.items()}
         if k["name"] in fam_records:
             k["borrow_limit_minus_2"] = fam_records[k["name"]]
+    # phase 11: the Krusell-Smith path runs none of the kernels (plain
+    # PyTorch; no Pallas kernel on its JAX path either)
+    for k in kernels:
+        k["launches_ks"] = launches_ks[k["name"]]
     kernels[-1]["over_egm_plus_dist"] = fused_over_parts(records)
     print(json.dumps({
         "kernels": kernels,

@@ -1,5 +1,6 @@
-"""The port runs without JAX: no file of ``aiyagari_hark_tpu_torch/`` and
-not ``chip_smoke.py`` imports ``jax`` or anything of the JAX package
+"""The port runs without JAX: no file of ``aiyagari_hark_tpu_torch/``, not
+``chip_smoke.py`` and not ``reproduce_torch.py`` imports ``jax`` or
+anything of the JAX package
 ``aiyagari_hark_tpu`` (a module whose name merely starts with the same
 letters, such as the port itself, is not the JAX package)."""
 
@@ -14,7 +15,8 @@ FORBIDDEN = ("jax", "jaxlib", "aiyagari_hark_tpu")
 
 
 def _files():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py"),
+           os.path.join(ROOT, "reproduce_torch.py")]
     for dirpath, _, names in os.walk(PORT):
         out += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     return sorted(out)
@@ -43,7 +45,7 @@ def _imports(path):
 
 def test_the_scan_sees_the_whole_port():
     rel = {os.path.relpath(p, ROOT) for p in _files()}
-    assert "chip_smoke.py" in rel
+    assert "chip_smoke.py" in rel and "reproduce_torch.py" in rel
     assert os.path.join("aiyagari_hark_tpu_torch", "ops", "kernels.py") in rel
     assert len(rel) >= 15
 
