@@ -15,7 +15,10 @@ with its checkpoint, resume and transient retry.  The model extensions
 (``models.transition``, ``jacobian``, ``value``, ``heterogeneity``,
 ``fiscal``, ``labor``, ``calibrate``, ``lifecycle`` and the Huggett
 credit crunch) run their path loops in plain PyTorch and their
-stationary solves through the same kernels.
+stationary solves through the same kernels; so does the two-asset
+portfolio economy (``models.portfolio``), whose push-forward is a
+segmented sum without atomics.  The sweep engine keeps a resume ledger,
+a scheduler sidecar and a transient retry around its launches.
 """
 
 from .facade import (  # noqa: F401
@@ -85,6 +88,11 @@ from .models.labor import (  # noqa: F401
 from .models.lifecycle import (  # noqa: F401
     simulate_cohort,
     solve_lifecycle,
+)
+from .models.portfolio import (  # noqa: F401
+    build_portfolio_model,
+    solve_portfolio_equilibrium,
+    solve_portfolio_household,
 )
 from .models.transition import (  # noqa: F401
     TransitionResult,

@@ -100,3 +100,31 @@ def sweep_config_from_fields(d: dict) -> SweepConfig:
                          "observability is not ported (ROADMAP Queue 1 "
                          "item 8)")
     return SweepConfig(**d)
+
+
+def portfolio_model_from_numpy(fields, device=None, dtype=None):
+    """The port's ``PortfolioModel`` from the JAX one's arrays in field
+    order (``a_grid, labor_levels, transition, labor_stationary,
+    risky_returns, risky_probs, share_grid, dist_grid``; the JAX model
+    itself is such a sequence); a missing or None ``dist_grid`` stays
+    None."""
+    from .models.portfolio import PortfolioModel
+
+    fields = list(fields)
+    n = len(PortfolioModel._fields)
+    if len(fields) not in (n - 1, n):
+        raise ValueError(f"portfolio_model_from_numpy: expected the {n} "
+                         f"fields {PortfolioModel._fields}, got "
+                         f"{len(fields)}")
+    return PortfolioModel(*(None if f is None else _tensor(f, device, dtype)
+                            for f in fields))
+
+
+def portfolio_policy_from_numpy(m_knots, c_knots, share, device=None,
+                                dtype=None):
+    """The port's ``PortfolioPolicy`` from knot arrays [N, A+1] and the
+    risky share [N, A]."""
+    from .models.portfolio import PortfolioPolicy
+
+    return PortfolioPolicy(*(_tensor(x, device, dtype)
+                             for x in (m_knots, c_knots, share)))

@@ -20,12 +20,17 @@ transfer.
 * SDC recheck: a fingerprint-sampled subset re-solved in other lane
   positions and compared bitwise; a mismatch is routed to quarantine.
 * certification: every cell graded by ``verify.certificate``.
+* durability: every launch, quarantine rung and the certification go
+  through ``utils.resilience.retry_transient`` (a transient fault on the
+  card is replayed after a backoff); with a ``resume_path`` each finished
+  bucket and quarantine walk is flushed to a resume ledger
+  (``utils.resilience.LedgerState``) before the next, and a rerun
+  restores them bit for bit; a ``SweepConfig.sidecar_path`` records the
+  run's counters and roots for the next run's work model and same-cell
+  warm seeds.
 
 Not ported, raising ``NotImplementedError`` naming the ROADMAP item:
-``mesh`` (Queue 1 item 6), the resume ledger, the sidecar, transient
-retry and the preemption drill (item 3), ``obs`` (item 8),
-``state_shards > 1`` (item 6).  Launches are not wrapped in a transient
-retry: an error on the card propagates.
+``mesh`` and ``state_shards > 1`` (Queue 1 item 6), ``obs`` (item 8).
 """
 
 from __future__ import annotations
@@ -39,9 +44,15 @@ import torch
 
 from ..device import resolve_device, resolve_dtype
 from ..solver_health import NONFINITE, is_failure, status_name
+from ..utils.checkpoint import (CORRUPT_NPZ_ERRORS, CheckpointMismatchError,
+                                load_sweep_sidecar, save_sweep_sidecar)
 from ..utils.config import SweepConfig
-from ..utils.fingerprint import (canonical_dtype, hashable_kwargs,
-                                 solution_fingerprint)
+from ..utils.fingerprint import (IntegrityError, canonical_dtype,
+                                 hashable_kwargs, ledger_fingerprint,
+                                 solution_fingerprint, work_fingerprint)
+from ..utils.resilience import (LedgerState, RetryPolicy, TransientInjector,
+                                fire_preemption, raise_if_interrupted,
+                                retry_transient)
 from ..utils.timing import stopwatch
 
 
@@ -238,11 +249,46 @@ def heuristic_cell_work(cells: np.ndarray) -> np.ndarray:
     return 1.0 / np.maximum(inv, 0.05)
 
 
-def _predict_work(cells: np.ndarray,
+def _load_sidecar(path, fingerprint):
+    """Best-effort sidecar read: a missing, corrupt, foreign or
+    checksum-failing file falls back to the heuristic (with a warning for
+    the last two), never stops a sweep."""
+    if path is None:
+        return None
+    try:
+        return load_sweep_sidecar(path, fingerprint)
+    except CheckpointMismatchError as e:
+        warnings.warn(f"sweep sidecar ignored: {e}", stacklevel=4)
+        return None
+    except IntegrityError as e:
+        warnings.warn(f"sweep sidecar failed integrity verification: {e}",
+                      stacklevel=4)
+        return None
+    except CORRUPT_NPZ_ERRORS:
+        return None
+
+
+def _predict_work(cells: np.ndarray, side=None,
                   heuristic=heuristic_cell_work) -> np.ndarray:
-    """Per-cell predicted work: the scenario's heuristic (the sidecar's
-    measured counters are not ported, ROADMAP Queue 1 item 3)."""
-    return heuristic(cells)
+    """Per-cell predicted work: the sidecar's measured counters where it
+    has the cell (the heuristic scaled into their units by the median
+    ratio over the matched cells, so the two stay comparable), the
+    scenario's heuristic elsewhere."""
+    pred = heuristic(cells)
+    if side is None:
+        return pred
+    measured = np.full(len(cells), np.nan)
+    work = side.total_work()
+    for i, cell in enumerate(cells):
+        j = side.lookup(cell)
+        if j is not None and work[j] > 0:
+            measured[i] = float(work[j])
+    have = np.isfinite(measured)
+    if have.any():
+        scale = float(np.median(measured[have] / pred[have]))
+        pred = pred * max(scale, 1e-12)
+        pred[have] = measured[have]
+    return pred
 
 
 def _host_bracket(model_kwargs: dict, dtype):
@@ -347,32 +393,72 @@ def _neighbor_seed(cell, cells, r_solved, solved_ok, width, r_tol,
     return target, donor_margin(spread, width, r_tol)
 
 
-def _timed_launch(fn, *args):
-    """One launch and its wall, ended by the rows' arrival on the host."""
-    with stopwatch() as sw:
-        packed = fn(*args)
-    return packed, sw.seconds
+def _resilience_seam(ledger, record, progress, inject_preempt=None,
+                     bucket_id=None) -> None:
+    """The one protocol of every safe boundary (a bucket, the locked
+    launch, a quarantine walk): commit the finished work to the ledger
+    first (``record`` mutates it; an interrupt must leave the work
+    durable), then fire the preemption drill if it is armed for this
+    bucket, then poll the shutdown flag."""
+    if ledger is not None:
+        record(ledger)
+        ledger.flush()
+    if (inject_preempt is not None and bucket_id is not None
+            and int(inject_preempt.get("after_bucket", -1)) == bucket_id):
+        fire_preemption(inject_preempt.get("mode", "signal"))
+    raise_if_interrupted(
+        "sweep", ledger.path if ledger is not None else None,
+        progress=progress)
+
+
+def _timed_launch(device_call, label, fn, *args):
+    """One launch through ``device_call`` (the transient retry) and the
+    wall of its successful attempt alone, ended by the rows' arrival on
+    the host: a failed attempt and the backoff are not charged.  A retry
+    replays the launch from its inputs (the batched solver is a pure
+    function of the cells, seeds and fault trips), so its bits are the
+    first attempt's; the launch counters of ``ops.kernels`` count every
+    attempt."""
+    t = [float("nan")]
+
+    def timed():
+        with stopwatch() as sw:
+            out = fn(*args)
+        t[0] = sw.seconds
+        return out
+
+    packed = device_call(label, timed)
+    return packed, t[0]
 
 
 def _solve_scheduled(scn, sweep: SweepConfig, cells_p, cells_nom,
                      fault_iters, fault_mode, dtype, device, kwargs_items,
-                     model_kwargs):
+                     model_kwargs, device_call, perturb=0.0, side=None,
+                     ledger=None, inject_preempt=None):
     """The balanced solve: returns the packed rows ``[C, width]`` in the
     original cell order, the summed launch wall, the bucket of each cell,
-    the predicted work and each cell's bracket seed (None: cold).
+    the predicted work, each cell's bracket seed (None: cold) and which
+    cells the resume ledger restored.
 
-    Per bucket, cheapest predicted first: warm seeds from the nearest
-    solved neighbour (with ``warm_brackets``), one launch, the rows put
-    back in place.  The work model and the distances use the nominal
-    cells (a ``perturb`` nudge does not move them).  A bucket launches
-    exactly its cells: the JAX engine pads every bucket to one shape to
-    share one compiled executable, and nothing is compiled here."""
+    Per bucket, cheapest predicted first: warm seeds (with
+    ``warm_brackets``) from the sidecar's root of the same cell or the
+    nearest solved neighbour, one launch through ``device_call``, the
+    rows put back in place, then the seam (``_resilience_seam``: the
+    ledger flushed, the preemption drill, the shutdown poll).  A bucket
+    the ledger holds is restored instead of launched, in loop order, so
+    later buckets' neighbour seeds see what an uninterrupted run saw.
+    The work model, sidecar lookups and distances use the nominal cells
+    (a ``perturb`` nudge does not move them).  A bucket launches exactly
+    its cells: the JAX engine pads every bucket to one shape to share one
+    compiled executable, and nothing is compiled here."""
     n_orig = len(cells_p)
     schema = scn.schema
     root_col = schema.idx(schema.root)
     status_col = schema.idx(schema.status)
     cells = np.asarray(cells_nom, dtype=np.float64)
-    pred = _predict_work(cells, heuristic=scn.cells.work)
+    pred = _predict_work(cells, side, heuristic=scn.cells.work)
+    if ledger is not None:
+        ledger.pred = np.asarray(pred, dtype=np.float64)
     order = np.argsort(pred, kind="stable")
     buckets, _ = _plan_buckets(order, sweep.n_buckets)
 
@@ -382,14 +468,28 @@ def _solve_scheduled(scn, sweep: SweepConfig, cells_p, cells_nom,
         width = float(r_hi) - float(r_lo)
         r_tol = scn.warm.host_r_tol(model_kwargs, dtype)
         max_levels = scn.warm.max_levels(model_kwargs)
+        # A same-cell sidecar root is exact to r_tol under the same
+        # configuration, so its seed descends deep: 2 r_tol keeps the
+        # root strictly inside, 4 |perturb| covers a perturbed rerun's
+        # root shift (dr*/drho ~ 0.03 on the Table II lattice).
+        margin_same = (float(sweep.warm_margin) if sweep.warm_margin > 0.0
+                       else max(2.0 * r_tol, 4.0 * abs(float(perturb)),
+                                16.0 * float(np.finfo(
+                                    canonical_dtype(dtype)).eps) * width))
 
     results = np.full((n_orig, schema.width), np.nan)
     solved = np.zeros(n_orig, dtype=bool)
     bucket_of = np.full(n_orig, -1, dtype=np.int64)
     seeds_used: list = [None] * n_orig
+    restored = np.zeros(n_orig, dtype=bool)
     wall_total = 0.0
     for bi, bucket in enumerate(buckets):
         bucket_of[bucket] = bi
+        if ledger is not None and ledger.solved[bucket].all():
+            results[bucket] = ledger.packed[bucket]
+            solved[bucket] = True
+            restored[bucket] = True
+            continue
         lanes = np.asarray(bucket, dtype=np.int64)
         seeds = None
         if warm_enabled:
@@ -397,28 +497,51 @@ def _solve_scheduled(scn, sweep: SweepConfig, cells_p, cells_nom,
                 results[:, status_col], nan=3.0)).astype(np.int64)
             solved_ok = (solved & np.isfinite(results[:, root_col])
                          & ~is_failure(status_so_far))
-            targets = [_neighbor_seed(cells[li], cells,
-                                      results[:, root_col], solved_ok,
-                                      width, r_tol,
-                                      float(sweep.warm_margin),
-                                      scale=scn.cells.scale)
-                       for li in lanes]
-            if solved_ok.any():
-                seeds = [dyadic_bracket(r_lo, r_hi, t[0], t[1],
+            targets = []
+            for li in lanes:
+                seed = None
+                if side is not None:
+                    j = side.lookup(cells[li])
+                    if j is not None and np.isfinite(side.r_star[j]):
+                        seed = (float(side.r_star[j]), margin_same)
+                if seed is None:
+                    seed = _neighbor_seed(cells[li], cells,
+                                          results[:, root_col], solved_ok,
+                                          width, r_tol,
+                                          float(sweep.warm_margin),
+                                          scale=scn.cells.scale)
+                targets.append(seed)
+            known = [t for t in targets if t is not None]
+            if known:
+                # a lane with no seed of its own (its sidecar root NaN,
+                # nothing solved yet) takes a pseudo-seed at the median of
+                # its bucket-mates' targets rather than forcing the bucket
+                # cold; the solve verifies it, and a bad one falls back to
+                # the cold trajectory
+                med = float(np.median([t[0] for t in known]))
+                pseudo = (med, max(0.125 * width, 64.0 * r_tol))
+                seeds = [dyadic_bracket(r_lo, r_hi,
+                                        *(t if t is not None else pseudo),
                                         max_levels, dtype)
                          for t in targets]
         warm = seeds is not None
         fn = scn.batched_solver(dtype, kwargs_items, fault_mode, warm)
         packed, launch_wall = _timed_launch(
-            fn, cells_p[lanes], device, seeds,
-            None if fault_iters is None else fault_iters[lanes])
+            device_call, f"sweep bucket {bi}", fn, cells_p[lanes], device,
+            seeds, None if fault_iters is None else fault_iters[lanes])
         wall_total += launch_wall
         results[lanes] = packed
         solved[bucket] = True
         if warm:
             for pos, li in enumerate(lanes):
                 seeds_used[li] = seeds[pos]
-    return results, wall_total, bucket_of, pred, seeds_used
+        _resilience_seam(
+            ledger,
+            lambda led: led.record_bucket(bucket, results[bucket], bi),
+            progress={"completed_buckets": bi + 1,
+                      "n_buckets": len(buckets)},
+            inject_preempt=inject_preempt, bucket_id=bi)
+    return results, wall_total, bucket_of, pred, seeds_used, restored
 
 
 # ---------------------------------------------------------------------------
@@ -443,7 +566,7 @@ def sdc_sample(cells: np.ndarray, kwargs_items: tuple, dtype,
 
 
 def _sdc_recheck(scn, rows, cells_p, sample, seeds_used, fault_iters,
-                 fault_mode, dtype, device, kwargs_items):
+                 fault_mode, dtype, device, kwargs_items, device_call):
     """Re-solve the sampled cells through the batched solver and compare
     the packed rows bitwise with ``rows``.  Each launch puts a duplicate
     of its first cell in lane 0, so every sampled cell solves at another
@@ -462,7 +585,8 @@ def _sdc_recheck(scn, rows, cells_p, sample, seeds_used, fault_iters,
         seeds = [seeds_used[i] for i in lanes] if warm else None
         fn = scn.batched_solver(dtype, kwargs_items, fault_mode, warm)
         packed, launch_wall = _timed_launch(
-            fn, cells_p[lanes], device, seeds,
+            device_call, f"sdc recheck [{len(lanes)}]", fn, cells_p[lanes],
+            device, seeds,
             None if fault_iters is None else fault_iters[lanes])
         wall += launch_wall
         for pos, i in enumerate(idx):
@@ -523,20 +647,11 @@ class ScenarioSweepResult:
         return _scheduled_skew(self.total_work(), self.bucket)
 
 
-def _check_unported(sweep: SweepConfig, mesh, resume_path, retry,
-                    inject_transient, inject_preempt, obs) -> None:
+def _check_unported(sweep: SweepConfig, mesh, obs) -> None:
     """Raise for every knob whose machinery the port lacks."""
     for value, what, item in (
             (mesh, "mesh (the cell-sharded sweep)", "6"),
             (sweep.state_shards > 1, "state_shards > 1", "6"),
-            (resume_path or sweep.resume_path, "resume_path (the resume "
-             "ledger)", "3"),
-            (sweep.sidecar_path, "sidecar_path (the scheduler sidecar)",
-             "3"),
-            (sweep.work_model == "sidecar", "work_model='sidecar'", "3"),
-            (retry, "retry (transient retry)", "3"),
-            (inject_transient, "inject_transient", "3"),
-            (inject_preempt, "inject_preempt (the preemption drill)", "3"),
             (obs is not None or sweep.obs is not None, "obs", "8")):
         if value:
             raise NotImplementedError(
@@ -578,8 +693,7 @@ def _run_sweep_impl(scn, sweep, cells_nom, dtype, device, mesh, timer,
                     resume_path, retry, inject_transient, inject_preempt,
                     inject_sdc, cert_thresholds, obs,
                     **model_kwargs) -> ScenarioSweepResult:
-    _check_unported(sweep, mesh, resume_path, retry, inject_transient,
-                    inject_preempt, obs)
+    _check_unported(sweep, mesh, obs)
     dev = resolve_device(device)
     dt = resolve_dtype(dtype)
     schema = scn.schema
@@ -619,16 +733,60 @@ def _run_sweep_impl(scn, sweep, cells_nom, dtype, device, mesh, timer,
         raise ValueError(f"schedule must be 'auto', 'balanced' or "
                          f"'locked', got {sweep.schedule!r}")
 
+    # -- durability: the sidecar comes first, because the resume ledger's
+    # fingerprint covers its content (warm seeds read it, so a sidecar
+    # swapped between an interrupt and the resume would change the
+    # trajectories); every device call goes through the transient retry
+    side = None
+    if schedule == "balanced" and sweep.work_model in ("auto", "sidecar"):
+        side = _load_sidecar(sweep.sidecar_path, work_fingerprint(
+            kwargs_items, dt, scenario=scn.name))
+        if sweep.work_model == "sidecar" and side is None:
+            warnings.warn("work_model='sidecar' but no valid sidecar at "
+                          f"{sweep.sidecar_path!r}; using the heuristic",
+                          stacklevel=3)
+    retry_policy = retry if retry is not None else RetryPolicy()
+    injector = (TransientInjector(**inject_transient)
+                if inject_transient is not None else None)
+
+    def device_call(label, f):
+        return retry_transient(f, retry_policy, inject=injector,
+                               label=label)
+
+    if resume_path is None:
+        resume_path = sweep.resume_path
+    ledger = None
+    if resume_path is not None:
+        ledger = LedgerState.resume(resume_path, ledger_fingerprint(
+            cells_p, kwargs_items, dt, schedule, sweep.n_buckets,
+            sweep.warm_brackets, sweep.warm_margin, fault_mode, fault_iters,
+            max_retries, quarantine, side, scenario=scn.name,
+            row_fields=schema.fields), n_orig, width=schema.width)
+
     bucket_of = None
     pred = None
     seeds_used: list = [None] * n_orig
+    restored_mask = np.zeros(n_orig, dtype=bool)
     if schedule == "balanced":
-        rows, wall, bucket_of, pred, seeds_used = _solve_scheduled(
+        (rows, wall, bucket_of, pred, seeds_used,
+         restored_mask) = _solve_scheduled(
             scn, sweep, cells_p, cells_nom, fault_iters, fault_mode, dt,
-            dev, kwargs_items, model_kwargs)
+            dev, kwargs_items, model_kwargs, device_call, perturb=perturb,
+            side=side, ledger=ledger, inject_preempt=inject_preempt)
+    elif ledger is not None and ledger.solved.all():
+        # the locked launch finished in the interrupted run: restore it
+        # (its quarantine may still be pending)
+        rows, wall = ledger.packed, 0.0
     else:
         fn = scn.batched_solver(dt, kwargs_items, fault_mode, False)
-        rows, wall = _timed_launch(fn, cells_p, dev, None, fault_iters)
+        rows, wall = _timed_launch(device_call, "sweep launch", fn, cells_p,
+                                   dev, None, fault_iters)
+        # the locked launch is bucket 0 of 1 to the seam protocol
+        _resilience_seam(
+            ledger,
+            lambda led: led.record_bucket(np.arange(n_orig), rows, 0),
+            progress={"completed_buckets": 1, "n_buckets": 1},
+            inject_preempt=inject_preempt, bucket_id=0)
     if timer is not None:
         timer(wall)
     rows = np.array(rows, dtype=np.float64)
@@ -652,9 +810,28 @@ def _run_sweep_impl(scn, sweep, cells_nom, dtype, device, mesh, timer,
     if sweep.recheck_fraction > 0.0:
         sample = sdc_sample(cells_nom, kwargs_items, dt,
                             sweep.recheck_fraction, scenario=scn.name)
+        # ledger-restored cells that a fresh batched launch cannot
+        # reproduce are skipped, with a warning: warm cells whose seeds
+        # were not recorded, and quarantine outcomes (a serial rung's row,
+        # which the batched solver never writes)
+        skipped = []
+        if sweep.warm_brackets and restored_mask.any():
+            skipped += [int(i) for i in sample if restored_mask[i]
+                        and seeds_used[int(i)] is None]
+        if ledger is not None and ledger.retried.any():
+            skipped += [int(i) for i in sample
+                        if ledger.retried[i] and int(i) not in skipped]
+        if skipped:
+            warnings.warn(
+                f"sdc recheck: skipping ledger-restored cell(s) "
+                f"{sorted(skipped)} (warm seeds unknown, or the row is a "
+                f"serial quarantine outcome)", stacklevel=3)
+            sample = np.asarray([i for i in sample
+                                 if int(i) not in set(skipped)],
+                                dtype=np.int64)
         suspects, recheck_wall = _sdc_recheck(
             scn, rows, cells_p, sample, seeds_used, fault_iters, fault_mode,
-            dt, dev, kwargs_items)
+            dt, dev, kwargs_items, device_call)
         sdc_suspected = np.zeros(n_orig, dtype=bool)
         sdc_suspected[suspects] = True
         if suspects:
@@ -667,27 +844,47 @@ def _run_sweep_impl(scn, sweep, cells_nom, dtype, device, mesh, timer,
     # -- quarantine: the status column is the int64 authority from here on
     status = np.asarray(np.rint(rows[:, status_col]), dtype=np.int64)
     retries = np.zeros(n_orig, dtype=np.int64)
+    # cells whose quarantine walk finished in the interrupted run: restore
+    # the outcome and its rung count (a recovered cell's row holds a
+    # healthy status, so it must not be walked again)
+    restored_retry = np.zeros(n_orig, dtype=bool)
+    if ledger is not None and quarantine:
+        for i in np.nonzero(ledger.retried)[0]:
+            rows[i] = ledger.packed[i]
+            status[i] = int(np.rint(rows[i, status_col]))
+            retries[i] = int(ledger.retries[i])
+            restored_retry[i] = True
     demoted = np.zeros(n_orig, dtype=bool)
     if sdc_suspected is not None:
         # a suspect's numbers are untrusted however healthy its status:
         # demote it so the ladder re-solves it
-        demoted = sdc_suspected.copy()
+        demoted = sdc_suspected & ~restored_retry
         status[demoted] = NONFINITE
-    failed = is_failure(status)
-    if quarantine and failed.any():
+    failed = is_failure(status) & ~restored_retry
+    if quarantine and (failed.any() or restored_retry.any()):
         ladder = tuple(scn.retry_rungs(model_kwargs))[
             :max(0, int(max_retries))]
         for i in np.nonzero(failed)[0]:
             for attempt, overrides in enumerate(ladder, start=1):
                 retries[i] = attempt
-                row_new = np.asarray(scn.eager_row(
-                    cells_p[i], dt, {**model_kwargs, **overrides}, dev),
-                    dtype=np.float64)
+                row_new = np.asarray(device_call(
+                    f"quarantine retry cell {int(i)}",
+                    lambda: scn.eager_row(
+                        cells_p[i], dt, {**model_kwargs, **overrides},
+                        dev)), dtype=np.float64)
                 cell_status = int(np.rint(row_new[status_col]))
                 if not is_failure(cell_status):
                     rows[i] = row_new
                     status[i] = cell_status
                     break
+            # the outcome is final for this run: the launches' seam
+            row_led = rows[i].copy()
+            row_led[status_col] = float(status[i])
+            _resilience_seam(
+                ledger,
+                lambda led: led.record_retry(int(i), row_led,
+                                             int(retries[i])),
+                progress={"retried_cell": int(i)})
         still = np.nonzero(is_failure(status))[0]
         for f in schema.mask_on_failure:
             rows[still, schema.idx(f)] = np.nan
@@ -709,7 +906,31 @@ def _run_sweep_impl(scn, sweep, cells_nom, dtype, device, mesh, timer,
                                               else np.nan)
     rows[:, status_col] = status.astype(np.float64)
 
-    # -- a posteriori certification of the final rows
+    if sweep.sidecar_path is not None:
+        # this run's counters and roots for the next run's scheduler;
+        # best-effort: an unwritable path must not cost a finished solve
+        c0, c1, c2 = (np.asarray(np.rint(rows[:, schema.idx(c)]),
+                                 dtype=np.int64) for c in schema.counters)
+        phase_kw = {}
+        if schema.phases is not None:
+            phase_kw = {name: np.asarray(np.rint(rows[:, schema.idx(f)]),
+                                         dtype=np.int64)
+                        for name, f in zip(("descent_steps",
+                                            "polish_steps"),
+                                           schema.phases)}
+        try:
+            save_sweep_sidecar(
+                sweep.sidecar_path, cells_nom,
+                rows[:, schema.idx(schema.root)], c0, c1, c2, status,
+                work_fingerprint(kwargs_items, dt, scenario=scn.name),
+                **phase_kw)
+        except OSError as e:
+            warnings.warn(f"could not write sweep sidecar "
+                          f"{sweep.sidecar_path!r}: {e}", stacklevel=3)
+
+    # -- a posteriori certification of the final rows, before the ledger
+    # is removed and through the transient retry: a fault here must not
+    # cost a finished sweep its resume state
     cert_level = None
     certify_wall = 0.0
     if sweep.certify:
@@ -718,10 +939,18 @@ def _run_sweep_impl(scn, sweep, cells_nom, dtype, device, mesh, timer,
                 f"scenario {scn.name!r} has no certify_rows hook; "
                 "run without SweepConfig(certify=True)")
         with stopwatch() as cert_sw:
-            certs = scn.certify_rows(rows, cells_p, dt, kwargs_items,
-                                     thresholds=cert_thresholds, device=dev)
+            certs = device_call(
+                "a posteriori certification",
+                lambda: scn.certify_rows(rows, cells_p, dt, kwargs_items,
+                                         thresholds=cert_thresholds,
+                                         device=dev))
         cert_level = np.asarray([c.level for c in certs], dtype=np.int64)
         certify_wall = cert_sw.seconds
+
+    if ledger is not None:
+        # the run is complete: a finished ledger must not satisfy the next
+        # run's launches
+        ledger.complete()
 
     return ScenarioSweepResult(
         scenario=scn.name, schema=schema,
@@ -788,12 +1017,35 @@ def run_table2_sweep(sweep: SweepConfig = SweepConfig(), dtype=None,
     ``cert_thresholds`` overrides the configuration's defaults) into
     ``cert_level``.  Rechecks and certification have their own walls.
 
+    Resilience: every launch, quarantine rung and the certification run
+    under ``retry_transient`` with ``retry`` (default ``RetryPolicy()``):
+    a transient fault (``resilience.classify_transient``) is replayed
+    after a deterministic backoff, with a warning; a retried launch
+    re-runs its whole host loop of trips from its inputs, so its bits are
+    the first attempt's, and the launch counters count both attempts.
+    ``inject_transient={"at_call": k, "times": n}`` makes the k-th guarded
+    call raise n times.  ``resume_path`` (or ``sweep.resume_path``) keeps
+    a resume ledger: every finished bucket (the locked launch is bucket 0
+    of 1) and every finished quarantine walk is flushed before the run
+    goes on, the shutdown flag is polled at each such seam (``Interrupted``
+    after the flush), and a rerun restores the ledger's rows and solves
+    the rest, bitwise the uninterrupted run; a ledger of another
+    configuration, or of the JAX package, warns and is recomputed, a row
+    failing its checksum is recomputed alone, and a completed run removes
+    the file.  ``inject_preempt={"after_bucket": b, "mode": "flag" |
+    "signal"}`` fires a preemption at bucket b's seam ("signal" sends
+    SIGTERM, which only a ``preemption_guard`` turns into the flag).
+    ``sweep.sidecar_path`` writes the run's roots and counters after the
+    sweep; a balanced rerun reads them (``work_model`` "auto" or
+    "sidecar") as its work model and, with ``warm_brackets``, as
+    same-cell seeds descended to within ``2 r_tol`` of the prior root.  A
+    stale or corrupt sidecar warns and falls back to the heuristic.
+
     ``wall_seconds`` covers the batched launches (model build, solve, the
-    rows' one transfer to the host), summed over buckets; ``timer`` is
-    called with it.  ``perturb`` is added to each cell's rho before the
-    solve.  ``mesh``, ``resume_path``, ``retry``, ``inject_transient``,
-    ``inject_preempt`` and ``obs`` raise ``NotImplementedError`` (see the
-    module docstring); launches are not wrapped in a transient retry."""
+    rows' one transfer to the host), summed over buckets, each its
+    successful attempt only; ``timer`` is called with it.  ``perturb`` is
+    added to each cell's rho before the solve.  ``mesh`` and ``obs``
+    raise ``NotImplementedError`` (see the module docstring)."""
     from ..scenarios.registry import get_scenario
 
     res = _run_sweep_impl(

@@ -1,24 +1,23 @@
 """Checkpoint / resume of fixed-point state as flat npz pytrees (port of
-the parts of ``aiyagari_hark_tpu/utils/checkpoint.py`` the Krusell-Smith
-outer loop uses).
+``aiyagari_hark_tpu/utils/checkpoint.py``).
 
 A pytree here is a tuple or NamedTuple of tensors, arrays and scalars
-(an ``AFuncParams``, a ``DistPanelState``, a ``KSCheckpoint``).  The file
-layout is the JAX package's: leaves under ``leaf_<i>`` (six digits,
-depth-first), plus a ``__treedef__`` string spelled as JAX's
-``PyTreeDef`` repr spells these trees (``PyTreeDef((*,
-CustomNode(namedtuple[DistPanelState], [*, *, *, *, *])))``), which this
-module writes itself.  So a KS checkpoint written by either package
-resumes in the other.  Leaves load as NumPy arrays; the caller moves
-them to its device.
+(an ``AFuncParams``, a ``DistPanelState``, a ``KSCheckpoint``, a
+``SweepSidecar``, a sweep ledger).  The file layout is the JAX package's:
+leaves under ``leaf_<i>`` (six digits, depth-first), plus a
+``__treedef__`` string spelled as JAX's ``PyTreeDef`` repr spells these
+trees (``PyTreeDef((*, CustomNode(namedtuple[DistPanelState], [*, *, *,
+*, *])))``), which this module writes itself.  So a KS checkpoint or a
+scheduler sidecar written by either package loads in the other.  Leaves
+load as NumPy arrays; the caller moves them to its device.
 
 Also here: the disk-fault injection hooks, the atomic text, JSON and
-JSONL writers, and the tolerant JSONL reader.  Not ported yet: the fleet
-leases and ``gc_orphaned_tmp`` (the serve tier, ROADMAP Queue 1 item 8),
-``SweepSidecar`` (item 3) and the writers' ``durable=True`` fsync mode
-(the serving tier's write-ahead log is its only user, item 8).  The JAX writers journal a ``DISK_FAULT``
-event when an injected fault fires; the port has no event journal yet
-(item 8).
+JSONL writers with their ``durable=True`` fsync mode, the tolerant JSONL
+reader, and the sweep scheduler's ``SweepSidecar``.  Not ported yet: the
+fleet leases and ``gc_orphaned_tmp`` (the serve tier, ROADMAP Queue 1
+item 8).  The JAX writers journal a ``DISK_FAULT`` event when an injected
+fault fires, and the sidecar loader an ``INTEGRITY_FAILED`` one; the port
+has no event journal yet (item 8).
 """
 
 from __future__ import annotations
@@ -28,10 +27,17 @@ import os
 import re
 import tempfile
 import threading
+import zipfile
 from typing import NamedTuple
 
 import numpy as np
 import torch
+
+# What ``np.load``/``load_pytree`` raise on a missing, truncated or trashed
+# npz (a half-written or zeroed file raises BadZipFile or EOFError, neither
+# an OSError): every best-effort loader degrades on this one set.
+CORRUPT_NPZ_ERRORS = (OSError, ValueError, EOFError, zipfile.BadZipFile)
+
 
 # -- deterministic disk-fault injection ---------------------------------------
 #
@@ -76,6 +82,20 @@ def _maybe_disk_fault(op: str, path: str) -> None:
         code = plan["errno"]
     kind = errno.errorcode.get(code, str(code))
     raise OSError(code, f"injected disk fault ({kind})", str(path))
+
+
+def _fsync_dir(path: str) -> None:
+    """fsync the directory holding ``path``, so a rename or create itself
+    survives power loss (the second half of a durable write)."""
+    d = os.path.dirname(os.path.abspath(path)) or "."
+    try:
+        fd = os.open(d, os.O_RDONLY)
+    except OSError:
+        return
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
 
 
 class CheckpointMismatchError(ValueError):
@@ -136,10 +156,12 @@ def _to_numpy(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
-def save_pytree(path: str, tree) -> None:
+def save_pytree(path: str, tree, durable: bool = False) -> None:
     """Write a pytree of tensors, arrays or scalars to ``path`` (npz,
     atomic rename), its structure string alongside so a load against the
-    wrong template is an error."""
+    wrong template is an error.  ``durable=True`` also fsyncs the bytes
+    and the directory entry: the write survives power loss, not only the
+    process's death."""
     _maybe_disk_fault("save_pytree", path)
     leaves, r = _flatten(tree)
     arrays = {f"leaf_{i:06d}": _to_numpy(leaf)
@@ -151,7 +173,12 @@ def save_pytree(path: str, tree) -> None:
     try:
         with os.fdopen(fd, "wb") as f:
             np.savez(f, **arrays)
+            if durable:
+                f.flush()
+                os.fsync(f.fileno())
         os.replace(tmp, path)
+        if durable:
+            _fsync_dir(path)
     except BaseException:
         if os.path.exists(tmp):
             os.remove(tmp)
@@ -195,56 +222,71 @@ def load_pytree(path: str, like, strict: bool = True):
 
 # -- atomic text, JSON and JSONL writers --------------------------------------
 
-def _atomic_write_text(path: str, text: str, suffix: str) -> None:
+def _atomic_write_text(path: str, text: str, suffix: str,
+                       durable: bool = False) -> None:
     """tmp + ``os.replace`` in the target's directory: a kill at any point
-    leaves the old file or the new one, never a truncated hybrid."""
+    leaves the old file or the new one, never a truncated hybrid.
+    ``durable=True`` fsyncs the file and the directory."""
     d = os.path.dirname(os.path.abspath(path)) or "."
     os.makedirs(d, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=d, suffix=suffix)
     try:
         with os.fdopen(fd, "w") as f:
             f.write(text)
+            if durable:
+                f.flush()
+                os.fsync(f.fileno())
         os.replace(tmp, path)
+        if durable:
+            _fsync_dir(path)
     except BaseException:
         if os.path.exists(tmp):
             os.remove(tmp)
         raise
 
 
-def atomic_write_text(path: str, text: str) -> None:
+def atomic_write_text(path: str, text: str, durable: bool = False) -> None:
     """Crash-consistent replacement for ``open(path, "w").write(text)``."""
     _maybe_disk_fault("atomic_write_text", path)
-    _atomic_write_text(path, text, suffix=".txt.tmp")
+    _atomic_write_text(path, text, suffix=".txt.tmp", durable=durable)
 
 
 def atomic_write_json(path: str, obj, indent: int = 2,
                       sort_keys: bool = False,
-                      trailing_newline: bool = True) -> None:
+                      trailing_newline: bool = True,
+                      durable: bool = False) -> None:
     """Crash-consistent JSON write (tmp + ``os.replace``)."""
     import json
 
     _maybe_disk_fault("atomic_write_json", path)
     text = json.dumps(obj, indent=indent, sort_keys=sort_keys)
     _atomic_write_text(path, text + ("\n" if trailing_newline else ""),
-                       suffix=".json.tmp")
+                       suffix=".json.tmp", durable=durable)
 
 
-def append_jsonl(path: str, lines) -> None:
+def append_jsonl(path: str, lines, durable: bool = False) -> None:
     """Append complete lines, each with one ``os.write`` to an
     ``O_APPEND`` descriptor: a kill between lines loses nothing, a kill
     mid-write tears at most the final line, and two appenders never
-    interleave bytes within a line."""
+    interleave bytes within a line.  ``durable=True`` fsyncs the
+    descriptor after the batch, and the directory when this call created
+    the file."""
     _maybe_disk_fault("append_jsonl", path)
     d = os.path.dirname(os.path.abspath(path)) or "."
     os.makedirs(d, exist_ok=True)
+    created = durable and not os.path.exists(path)
     fd = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_APPEND, 0o644)
     try:
         for line in lines:
             if not line.endswith("\n"):
                 line += "\n"
             os.write(fd, line.encode("utf-8"))
+        if durable:
+            os.fsync(fd)
     finally:
         os.close(fd)
+    if created:
+        _fsync_dir(path)
 
 
 def read_jsonl_tolerant(path: str) -> tuple:
@@ -264,6 +306,119 @@ def read_jsonl_tolerant(path: str) -> tuple:
             except (ValueError, UnicodeDecodeError):
                 skipped += 1
     return records, skipped
+
+
+# -- the sweep scheduler's sidecar --------------------------------------------
+
+class SweepSidecar(NamedTuple):
+    """One prior sweep's per-cell work counters and roots for the next
+    sweep's scheduler, keyed by the cell triples and fingerprinted
+    against the solver configuration that produced them (the JAX
+    package's layout: a sidecar either package wrote loads in the other).
+
+    The work model reads ``total_work()`` to bucket cells by measured
+    cost; the warm-bracket seeder reads ``r_star`` to descend each cell's
+    bracket toward its known root.  A failed cell's row has NaN
+    ``r_star`` (never a seed) but keeps its counters.  ``descent_steps``
+    and ``polish_steps`` split the counters by precision-ladder phase, so
+    a cheap descent step weighs ``config.DESCENT_STEP_COST``.
+    ``checksum`` is the ``fingerprint.content_checksum`` of every content
+    array, taken at save time and verified at load (0: unset)."""
+
+    cells: np.ndarray          # [C, 3] float64
+    r_star: np.ndarray         # [C] root; NaN = failed
+    bisect_iters: np.ndarray   # [C] int64
+    egm_iters: np.ndarray      # [C] int64
+    dist_iters: np.ndarray     # [C] int64
+    descent_steps: np.ndarray  # [C] int64 cheap-phase inner steps
+    polish_steps: np.ndarray   # [C] int64 reference-phase inner steps
+    status: np.ndarray         # [C] int64 solver_health codes
+    fingerprint: np.ndarray    # scalar int64 solver-configuration key
+    checksum: np.ndarray = np.zeros((), np.int64)
+
+    def content_checksum(self) -> int:
+        """The checksum the stored content should carry (one hashing
+        order for the writer and the verifier)."""
+        from .fingerprint import content_checksum
+
+        return content_checksum(self.cells, self.r_star, self.bisect_iters,
+                                self.egm_iters, self.dist_iters,
+                                self.descent_steps, self.polish_steps,
+                                self.status)
+
+    def total_work(self) -> np.ndarray:
+        """Per-cell work in reference-step units: every step, a descent
+        step weighted by its relative cost."""
+        from .config import DESCENT_STEP_COST
+
+        total = (self.egm_iters + self.dist_iters).astype(np.float64)
+        return total - (1.0 - DESCENT_STEP_COST) * self.descent_steps
+
+    def lookup(self, cell, decimals: int = 9):
+        """Row index of ``cell`` (rounded match), or None."""
+        key = np.round(np.asarray(cell, dtype=np.float64), decimals)
+        hits = np.nonzero(
+            (np.round(self.cells, decimals) == key[None, :]).all(axis=1))[0]
+        return int(hits[0]) if len(hits) else None
+
+
+def save_sweep_sidecar(path: str, cells, r_star, bisect_iters, egm_iters,
+                       dist_iters, status, fingerprint: int,
+                       descent_steps=None, polish_steps=None) -> None:
+    """Write a sweep's per-cell record for the next run's scheduler
+    (atomic npz), its content checksum stamped.  ``descent_steps`` and
+    ``polish_steps`` default to the all-reference split."""
+    n = len(np.asarray(r_star))
+    if descent_steps is None:
+        descent_steps = np.zeros(n, dtype=np.int64)
+    if polish_steps is None:
+        polish_steps = (np.asarray(egm_iters, dtype=np.int64)
+                        + np.asarray(dist_iters, dtype=np.int64))
+    side = SweepSidecar(
+        cells=np.asarray(cells, dtype=np.float64),
+        r_star=np.asarray(r_star, dtype=np.float64),
+        bisect_iters=np.asarray(bisect_iters, dtype=np.int64),
+        egm_iters=np.asarray(egm_iters, dtype=np.int64),
+        dist_iters=np.asarray(dist_iters, dtype=np.int64),
+        descent_steps=np.asarray(descent_steps, dtype=np.int64),
+        polish_steps=np.asarray(polish_steps, dtype=np.int64),
+        status=np.asarray(status, dtype=np.int64),
+        fingerprint=np.asarray(fingerprint, np.int64),
+        checksum=np.zeros((), np.int64))
+    save_pytree(path, side._replace(
+        checksum=np.asarray(side.content_checksum(), np.int64)))
+
+
+def load_sweep_sidecar(path: str, fingerprint: int) -> SweepSidecar:
+    """Load a scheduler sidecar, refusing one written under another solver
+    configuration (``CheckpointMismatchError``) or whose content no longer
+    hashes to its checksum (``fingerprint.IntegrityError``); a missing or
+    corrupt file raises one of ``CORRUPT_NPZ_ERRORS``.  The sweep catches
+    all of them and falls back to its heuristic."""
+    from .fingerprint import IntegrityError
+
+    n = 1   # the leaf shapes come from the file
+    tmpl = SweepSidecar(
+        cells=np.zeros((n, 3)), r_star=np.zeros(n),
+        bisect_iters=np.zeros(n, np.int64), egm_iters=np.zeros(n, np.int64),
+        dist_iters=np.zeros(n, np.int64),
+        descent_steps=np.zeros(n, np.int64),
+        polish_steps=np.zeros(n, np.int64), status=np.zeros(n, np.int64),
+        fingerprint=np.zeros((), np.int64), checksum=np.zeros((), np.int64))
+    side = load_pytree(path, tmpl)
+    if int(side.fingerprint) != int(fingerprint):
+        raise CheckpointMismatchError(
+            f"sweep sidecar {path} was written under solver-config "
+            f"fingerprint {int(side.fingerprint)}, current is "
+            f"{int(fingerprint)}; refusing a stale work model")
+    want = side.content_checksum()
+    if int(side.checksum) != int(want):
+        raise IntegrityError(
+            f"sweep sidecar {path} failed content-checksum verification "
+            f"(stored {int(side.checksum)}, content hashes to {want}) — "
+            "silent corruption; refusing the work model",
+            boundary="sidecar")
+    return side
 
 
 # -- the Krusell-Smith checkpoint ---------------------------------------------

@@ -367,8 +367,13 @@ class SweepConfig:
     ``warm_brackets`` seeds each cell's bracket by dyadic descent toward
     the nearest solved neighbour's root (verified in the solve; a bad
     seed falls back to the cold bracket), ``warm_margin`` the ball kept
-    around the seed root (0.0: automatic).  ``work_model`` "auto" and
-    "heuristic" use the (sigma, rho, sd) heuristic.
+    around the seed root (0.0: automatic).  ``work_model`` "heuristic"
+    uses the (sigma, rho, sd) heuristic; "auto" and "sidecar" read the
+    measured counters of ``sidecar_path`` where it has the cell (and, with
+    ``warm_brackets``, its roots as same-cell seeds), "sidecar" warning
+    when no valid sidecar is there.  A sweep with a ``sidecar_path``
+    writes one after it solves.  ``resume_path`` keeps the resume ledger
+    (``utils.resilience.LedgerState``).
 
     Integrity: ``recheck_fraction`` re-solves a fingerprint-sampled
     ``ceil(fraction C)`` cells in other lane positions and compares the
@@ -377,10 +382,8 @@ class SweepConfig:
     ``grid`` and ``kernel`` are model-kwarg defaults of every cell.
 
     Not ported, each raising ``NotImplementedError`` in ``run_sweep``
-    when set off its default: ``work_model="sidecar"`` and
-    ``sidecar_path`` (the sidecar, ROADMAP Queue 1 item 3),
-    ``resume_path`` (the resume ledger, item 3), ``state_shards > 1``
-    (item 6) and ``obs`` (item 8).  ``compilation_cache`` has nothing to
+    when set off its default: ``state_shards > 1`` (ROADMAP Queue 1 item
+    6) and ``obs`` (item 8).  ``compilation_cache`` has nothing to
     enable under PyTorch (the kernels are built once per process and
     nothing else is compiled) and is ignored."""
 

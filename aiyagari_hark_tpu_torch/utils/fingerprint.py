@@ -1,6 +1,9 @@
-"""Fingerprints of a solver configuration (the port's own copy of the host
+"""Fingerprints and content checksums (the port's own copy of the host
 code of ``aiyagari_hark_tpu/utils/fingerprint.py``): the sweep's SDC
-sample ranks cells by ``solution_fingerprint``.
+sample ranks cells by ``solution_fingerprint``, the scheduler sidecar is
+keyed by ``work_fingerprint``, the resume ledger by ``ledger_fingerprint``,
+and every durable row carries a ``packed_row_checksum`` taken at solve
+time.
 
 For equal inputs every int here equals the JAX package's: the same md5
 over the same strings.  A dtype is hashed as ``str(np.dtype(dtype))``, so
@@ -12,6 +15,11 @@ The inputs differ where the packages differ: the JAX sweep's
 ``egm_method``) into the solver kwargs before hashing, and the port has
 no such keys.  So for the same user call the port's ``kwargs_items`` --
 and its fingerprints and SDC sample -- may differ from JAX's.
+
+One key differs on purpose: ``ledger_fingerprint`` also hashes
+``PACKAGE_TOKEN``.  A resume ledger restores a sweep's rows bit for bit
+into a result that claims to be the port's; a ledger the JAX package
+wrote holds JAX's bits, so the port refuses it (warns and recomputes).
 """
 
 from __future__ import annotations
@@ -25,6 +33,73 @@ import torch
 
 from .config import (resolve_grid, resolve_kernel, resolve_precision,
                      resolve_state)
+
+class IntegrityError(RuntimeError):
+    """A content checksum failed verification at an artifact boundary: the
+    stored bytes are not the bytes that were solved (a bit flip, a torn
+    write that still parses).  Not a ``ValueError`` or ``OSError``, so the
+    best-effort loaders (``checkpoint.CORRUPT_NPZ_ERRORS``) cannot swallow
+    it by accident: each boundary decides its own degrade (the resume
+    ledger recomputes the cell, the sidecar falls back to the heuristic).
+    ``boundary`` names the site ("ledger", "sidecar", ...), ``key`` the
+    entry or cell when there is one."""
+
+    def __init__(self, message: str, boundary: str | None = None,
+                 key=None):
+        super().__init__(message)
+        self.boundary = boundary
+        self.key = None if key is None else int(key)
+
+
+def content_checksum(*arrays) -> int:
+    """Deterministic int64 checksum over the canonical bytes of numeric
+    arrays: each as little-endian float64 (which holds every narrower
+    dtype exactly and round-trips npz bit for bit), C-contiguous, its
+    shape included.  The JAX package's spelling: equal arrays give equal
+    ints in both packages."""
+    h = hashlib.md5()
+    for a in arrays:
+        a = np.ascontiguousarray(np.asarray(a, dtype="<f8"))
+        h.update(str(a.shape).encode())
+        h.update(a.tobytes())
+    return int.from_bytes(h.digest()[:8], "little", signed=True)
+
+
+def packed_row_checksum(row) -> int:
+    """Content checksum of one packed row, taken at solve time and
+    verified wherever the row is restored."""
+    return content_checksum(row)
+
+
+def packed_row_checksums(rows) -> np.ndarray:
+    """Per-row checksums of a [C, W] packed block, int64 (NaN rows too:
+    the same program writes the same NaN bits)."""
+    rows = np.asarray(rows, dtype=np.float64)
+    return np.asarray([packed_row_checksum(r) for r in rows],
+                      dtype=np.int64)
+
+
+def verify_packed_row(row, expected: int, boundary: str,
+                      key=None) -> None:
+    """Raise ``IntegrityError`` unless ``row``'s checksum is ``expected``
+    (the int64 recorded at solve time).  The JAX package also journals an
+    ``INTEGRITY_FAILED`` event here; the port has no event journal yet
+    (ROADMAP Queue 1 item 8)."""
+    got = packed_row_checksum(row)
+    if int(got) != int(expected):
+        where = "" if key is None else f" (entry {int(key)})"
+        raise IntegrityError(
+            f"packed-row checksum mismatch at the {boundary} "
+            f"boundary{where}: stored bytes hash to {got}, solve-time "
+            f"checksum was {int(expected)} — silent corruption",
+            boundary=boundary, key=key)
+
+
+def fingerprint_hex(key: int) -> str:
+    """A signed int64 fingerprint as a file-name spelling: its
+    two's-complement bits, zero-padded hex."""
+    return f"{int(key) & 0xFFFFFFFFFFFFFFFF:016x}"
+
 
 _NUMPY_DTYPES = {torch.float64: np.dtype(np.float64),
                  torch.float32: np.dtype(np.float32)}
@@ -133,3 +208,38 @@ def solution_fingerprint(crra, labor_ar, labor_sd, kwargs_items: tuple,
         _scenario_token(scenario),
         str(canonical_dtype(dtype)), repr(kwargs_items),
         float(crra), float(labor_ar), float(labor_sd))
+
+
+# Hashed into every resume-ledger key of the port (see the module
+# docstring): a ledger written by the JAX package never matches.
+PACKAGE_TOKEN = "package:aiyagari_hark_tpu_torch"
+
+
+def ledger_fingerprint(cells, kwargs_items: tuple, dtype,
+                       schedule: str, n_buckets: int, warm_brackets: bool,
+                       warm_margin: float, fault_mode, fault_iters,
+                       max_retries: int, quarantine: bool,
+                       sidecar, scenario: str = DEFAULT_SCENARIO,
+                       row_fields=None, mesh_shards: int = 1,
+                       state_shards: int = 1) -> int:
+    """Validity key of the sweep resume ledger (``resilience.SweepLedger``):
+    the JAX package's fields -- the scenario, the cells (perturb
+    included), solver kwargs, dtype, schedule knobs, fault injection, the
+    sidecar's content (warm seeds read it), the packed-row layout
+    (``row_fields``; None: the registered scenario's) and the launch
+    geometry (``mesh_shards``, ``state_shards``: 1 and 1 in the port,
+    which shards nothing yet) -- plus ``PACKAGE_TOKEN``."""
+    if row_fields is None:
+        from ..scenarios.registry import get_scenario
+
+        row_fields = get_scenario(scenario).schema.fields
+    return config_fingerprint(
+        PACKAGE_TOKEN, _scenario_token(scenario), repr(tuple(row_fields)),
+        np.asarray(cells, dtype=np.float64),
+        repr(kwargs_items), str(canonical_dtype(dtype)),
+        schedule, int(n_buckets), bool(warm_brackets),
+        float(warm_margin), str(fault_mode),
+        "none" if fault_iters is None else fault_iters,
+        int(max_retries), bool(quarantine),
+        (int(mesh_shards), int(state_shards)),
+        *(tuple(sidecar) if sidecar is not None else ("no-sidecar",)))

@@ -1,6 +1,13 @@
-"""Graceful shutdown and transient-fault retry (port of the parts of
-``aiyagari_hark_tpu/utils/resilience.py`` the Krusell-Smith outer loop
-uses).
+"""Durable sweep resume, graceful shutdown and transient-fault retry (port
+of ``aiyagari_hark_tpu/utils/resilience.py``).
+
+* **Durable sweep resume** (``SweepLedger`` / ``LedgerState``): the sweep
+  engine writes a fingerprinted ledger of every finished bucket's packed
+  rows and every final quarantine outcome, atomically, after each bucket
+  and each quarantine walk.  A rerun with the same ``resume_path``
+  restores them and solves only the rest; the result is bitwise the
+  uninterrupted run's.  Each row carries its solve-time checksum, and a
+  row that no longer hashes to it is recomputed.
 
 * **Graceful shutdown** (``preemption_guard``): SIGTERM/SIGINT handlers
   that set a flag (``interrupt_requested``) which long loops poll at safe
@@ -13,10 +20,11 @@ uses).
   is).  ``TransientInjector`` (raise at call k) drives every retry path on
   the CPU.
 
-Host-side only.  Not ported yet: the sweep's resume ledger
-(``SweepLedger`` / ``LedgerState``, ROADMAP Queue 1 item 3), the guard's
-sweep of orphaned temp files (``gc_orphaned_tmp``, item 8), and the
-``INTERRUPTED`` / ``RETRY_TRANSIENT`` event journal (item 8).
+Host-side only.  Not ported yet: the sweep of orphaned temp files that
+the JAX guard and ledger resume run (``gc_orphaned_tmp``, the serve tier,
+ROADMAP Queue 1 item 8), and the ``INTERRUPTED`` / ``RETRY_TRANSIENT`` /
+``RESUME_RESTORE`` / ``INTEGRITY_FAILED`` / ``DISK_FAULT`` event journal
+(item 8).
 """
 
 from __future__ import annotations
@@ -26,9 +34,13 @@ import signal
 import time
 import warnings
 from dataclasses import dataclass, field
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
+
+import numpy as np
 
 from ..solver_health import INTERRUPTED, SolverDivergenceError
+from .checkpoint import CORRUPT_NPZ_ERRORS, load_pytree, save_pytree
+from .fingerprint import packed_row_checksum, packed_row_checksums
 
 
 class Interrupted(BaseException):
@@ -286,3 +298,165 @@ def retry_transient(fn: Callable[[], object],
                 f"retrying in {d:g}s", stacklevel=2)
             policy.sleep(d)
     raise AssertionError("unreachable")
+
+
+# ---------------------------------------------------------------------------
+# Durable sweep resume: the per-bucket ledger.
+# ---------------------------------------------------------------------------
+
+class SweepLedger(NamedTuple):
+    """A sweep in progress on disk (one atomic npz, the JAX package's
+    eight-leaf layout): the packed rows in the original cell order and
+    the bookkeeping the resume needs.
+
+    ``packed`` rows are the batched solver's rows as they reached the
+    host (float64 round-trips npz bit for bit), so a resumed assembly is
+    bitwise an uninterrupted one.  ``fingerprint`` (``fingerprint.
+    ledger_fingerprint``) covers everything that shapes those bits; a
+    mismatch starts the sweep afresh, with a warning.  ``checksums`` are
+    per-row ``packed_row_checksum`` values taken at solve time, before
+    the first flush: a row that no longer hashes to its checksum is
+    cleared and recomputed, the others restored."""
+
+    packed: np.ndarray       # [C, W] float64; NaN rows = not yet solved
+    solved: np.ndarray       # [C] bool: batched result present
+    bucket: np.ndarray       # [C] int64 launch group (-1 = unassigned)
+    pred: np.ndarray         # [C] float64 scheduler work model
+    retries: np.ndarray      # [C] int64 quarantine rungs consumed
+    retried: np.ndarray      # [C] bool: the quarantine outcome is final
+    checksums: np.ndarray    # [C] int64 solve-time row checksums (0 unset)
+    fingerprint: np.ndarray  # scalar int64
+
+
+def _ledger_template(n: int, width: int) -> SweepLedger:
+    return SweepLedger(
+        packed=np.full((n, int(width)), np.nan),
+        solved=np.zeros(n, dtype=bool),
+        bucket=np.full(n, -1, dtype=np.int64),
+        pred=np.full(n, np.nan),
+        retries=np.zeros(n, dtype=np.int64),
+        retried=np.zeros(n, dtype=bool),
+        checksums=np.zeros(n, dtype=np.int64),
+        fingerprint=np.zeros((), np.int64))
+
+
+class LedgerState:
+    """The host-side, mutable ledger: the sweep records progress here and
+    ``flush()``es after every bucket and every quarantine walk, each flush
+    one atomic replace (a kill leaves the previous or the new ledger,
+    never a torn one).  ``complete()`` removes the file: a finished run
+    must not satisfy the next run's launches."""
+
+    def __init__(self, path: str, fingerprint: int, n_cells: int,
+                 width: int = 10):
+        self.path = path
+        self.fingerprint = int(fingerprint)
+        self.width = int(width)
+        t = _ledger_template(n_cells, width)
+        self.packed = t.packed
+        self.solved = t.solved
+        self.bucket = t.bucket
+        self.pred = t.pred
+        self.retries = t.retries
+        self.retried = t.retried
+        self.checksums = t.checksums
+        self.resumed = False       # a prior run's progress was restored
+        self.corrupt_cells = []    # cells whose row failed its checksum
+
+    @classmethod
+    def resume(cls, path: str, fingerprint: int, n_cells: int,
+               width: int = 10) -> "LedgerState":
+        """A fresh state, or the prior run's when ``path`` holds a ledger
+        of the same run (equal fingerprint).  A missing file is the first
+        run; an unreadable or foreign one warns and starts fresh (the
+        first flush overwrites it)."""
+        self = cls(path, fingerprint, n_cells, width=width)
+        if not os.path.exists(path):
+            return self
+        try:
+            led = load_pytree(path, _ledger_template(n_cells, width))
+        except CORRUPT_NPZ_ERRORS as e:
+            warnings.warn(f"sweep resume ledger {path} unreadable ({e}); "
+                          f"starting fresh", stacklevel=2)
+            return self
+        if int(led.fingerprint) != int(fingerprint):
+            warnings.warn(
+                f"sweep resume ledger {path} was written by a different "
+                f"run (fingerprint {int(led.fingerprint)} vs "
+                f"{int(fingerprint)}); starting fresh", stacklevel=2)
+            return self
+        self.packed = np.array(led.packed)
+        self.solved = np.array(led.solved)
+        self.bucket = np.array(led.bucket)
+        self.pred = np.array(led.pred)
+        self.retries = np.array(led.retries)
+        self.retried = np.array(led.retried)
+        self.checksums = np.array(led.checksums)
+        self._verify_rows()
+        self.resumed = bool(self.solved.any() or self.retried.any())
+        return self
+
+    def _verify_rows(self) -> None:
+        """Every row the ledger claims solved or retried must still hash
+        to its solve-time checksum; a row that does not is cleared (the
+        sweep recomputes it and its bucket) and named in a warning.  The
+        other rows are restored untouched."""
+        claimed = self.solved | self.retried
+        bad = [int(i) for i in np.nonzero(claimed)[0]
+               if packed_row_checksum(self.packed[i])
+               != int(self.checksums[i])]
+        if not bad:
+            return
+        for i in bad:
+            self.packed[i] = np.nan
+            self.solved[i] = False
+            self.retried[i] = False
+            self.retries[i] = 0
+            self.bucket[i] = -1
+            self.checksums[i] = 0
+        self.corrupt_cells = bad
+        warnings.warn(
+            f"sweep resume ledger {self.path}: row checksum verification "
+            f"failed for cell(s) {bad} — silent corruption; those cells "
+            "are quarantined and will be recomputed", stacklevel=3)
+
+    def record_bucket(self, cells: np.ndarray, rows: np.ndarray,
+                      bucket_id: int) -> None:
+        """A bucket's launch finished: store its rows, with their
+        checksums taken now, before any flush."""
+        self.packed[cells] = rows
+        self.solved[cells] = True
+        self.bucket[cells] = bucket_id
+        self.checksums[cells] = packed_row_checksums(rows)
+
+    def record_retry(self, cell: int, row: np.ndarray,
+                     attempts: int) -> None:
+        """A quarantined cell's ladder walk finished (recovered or not):
+        its outcome is final for this run."""
+        self.packed[cell] = row
+        self.retries[cell] = attempts
+        self.retried[cell] = True
+        self.checksums[cell] = packed_row_checksum(row)
+
+    def flush(self) -> None:
+        """Write the ledger.  A disk fault (ENOSPC, EIO; injected or real)
+        skips this flush with a warning: the sweep goes on from memory and
+        only its resume coverage lags until a flush lands."""
+        try:
+            save_pytree(self.path, SweepLedger(
+                packed=self.packed, solved=self.solved, bucket=self.bucket,
+                pred=self.pred, retries=self.retries, retried=self.retried,
+                checksums=self.checksums,
+                fingerprint=np.asarray(self.fingerprint, np.int64)))
+        except OSError as e:
+            warnings.warn(
+                f"sweep ledger flush to {self.path} failed ({e}); "
+                "skipping this flush — the sweep continues from memory "
+                "and resume coverage lags until a flush lands",
+                stacklevel=3)
+
+    def complete(self) -> None:
+        try:
+            os.remove(self.path)
+        except OSError:
+            pass

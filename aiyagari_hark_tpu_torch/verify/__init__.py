@@ -1,8 +1,8 @@
 """Solution integrity (port of ``aiyagari_hark_tpu/verify``): a
 posteriori certification of solved equilibria (``certificate``) and the
-packed-row corruption drills (``inject``) of the sweep's SDC recheck.
-The checksummed artifact chain waits for the ledger and the store
-(ROADMAP Queue 1 items 3 and 8)."""
+corruption drills (``inject``) of the sweep's SDC recheck, its resume
+ledger and certification.  The solution store's drill waits for the
+store (ROADMAP Queue 1 item 8)."""
 
 from .certificate import (  # noqa: F401
     CERT_CHECKS,
@@ -22,4 +22,9 @@ from .certificate import (  # noqa: F401
     shape_residual,
     stationarity_residuals,
 )
-from .inject import flip_row_bit, perturb_row  # noqa: F401
+from .inject import (  # noqa: F401
+    corrupt_ledger_row,
+    flip_row_bit,
+    perturb_row,
+    perturbed_policy,
+)

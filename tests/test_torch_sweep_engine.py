@@ -361,13 +361,6 @@ def test_stall_without_retries_ends_max_iter_nan_masked():
 @pytest.mark.parametrize("sweep_kw,call_kw,item", [
     ({}, dict(mesh="auto"), "item 6"),
     (dict(state_shards=2), {}, "item 6"),
-    (dict(resume_path="ledger.npz"), {}, "item 3"),
-    ({}, dict(resume_path="ledger.npz"), "item 3"),
-    (dict(sidecar_path="side.npz"), {}, "item 3"),
-    (dict(work_model="sidecar"), {}, "item 3"),
-    ({}, dict(retry=object()), "item 3"),
-    ({}, dict(inject_transient={"at_call": 0}), "item 3"),
-    ({}, dict(inject_preempt={"after_bucket": 0}), "item 3"),
     (dict(obs=object()), {}, "item 8"),
     ({}, dict(obs=object()), "item 8")])
 def test_unported_knobs_raise_naming_their_roadmap_item(sweep_kw, call_kw,
