@@ -331,9 +331,12 @@ class PortfolioPush(NamedTuple):
     tree, unpadded).  Up to three contributions this is the JAX package's
     left-to-right sum bit for bit; beyond, it rounds differently.  Every
     level is elementwise, so the bits do not depend on the device's
-    scheduling (no atomics) and a step takes a fixed number of launches
-    whatever the in-degree: the constrained sources all land on
-    gridpoints 0 and 1, up to D N K contributions each."""
+    scheduling (no atomics), and a step's launches grow with the log of
+    the in-degree, not with the in-degree: the constrained sources all
+    land on gridpoints 0 and 1, up to D N K contributions each.  The tree
+    is as deep as the transition's longest run needs, ceil(log2(run))
+    levels, read once when the push is built: a deeper level adds only
+    zeros."""
 
     source: torch.Tensor   # [M] index into mass [N', D, N, K], sorted order
     coef: torch.Tensor     # [M] (1 - w) or w of each sorted contribution
@@ -345,7 +348,8 @@ class PortfolioPush(NamedTuple):
 
 def portfolio_push(trans: PortfolioTransition) -> PortfolioPush:
     """Sort a transition's contributions by target and lay out the
-    pairwise tree (``PortfolioPush``); no host sync."""
+    pairwise tree (``PortfolioPush``); one host sync, which reads the
+    longest run to size the tree."""
     d_size, n, k, n_next = trans.idx.shape
     dev = trans.idx.device
     per_col = d_size * n * k
@@ -369,9 +373,10 @@ def portfolio_push(trans: PortfolioTransition) -> PortfolioPush:
     n_targets = n_next * d_size
     count = torch.bincount(target, minlength=n_targets)
     length = count[target]
+    longest = int(count.max())        # at most 2 D N K shares
     masks = []
     step = 1
-    while step < 2 * per_col:         # the longest run: 2 D N K shares
+    while step < longest:
         masks.append(((rank % (2 * step)) == 0)[:m - step]
                      & (rank[:m - step] + step < length[:m - step]))
         step *= 2

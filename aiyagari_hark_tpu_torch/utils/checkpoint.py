@@ -12,12 +12,13 @@ scheduler sidecar written by either package loads in the other.  Leaves
 load as NumPy arrays; the caller moves them to its device.
 
 Also here: the disk-fault injection hooks, the atomic text, JSON and
-JSONL writers with their ``durable=True`` fsync mode, the tolerant JSONL
-reader, and the sweep scheduler's ``SweepSidecar``.  Not ported yet: the
-fleet leases and ``gc_orphaned_tmp`` (the serve tier, ROADMAP Queue 1
-item 8).  The JAX writers journal a ``DISK_FAULT`` event when an injected
-fault fires, and the sidecar loader an ``INTEGRITY_FAILED`` one; the port
-has no event journal yet (item 8).
+JSONL writers, the tolerant JSONL reader, and the sweep scheduler's
+``SweepSidecar``.  Not ported yet: the fleet leases, ``gc_orphaned_tmp``
+and the writers' ``durable=True`` fsync mode (the serving tier's
+write-ahead log is its only user; ROADMAP Queue 1 item 8).  The JAX
+writers journal a ``DISK_FAULT`` event when an injected fault fires, and
+the sidecar loader an ``INTEGRITY_FAILED`` one; the port has no event
+journal yet (item 8).
 """
 
 from __future__ import annotations
@@ -84,20 +85,6 @@ def _maybe_disk_fault(op: str, path: str) -> None:
     raise OSError(code, f"injected disk fault ({kind})", str(path))
 
 
-def _fsync_dir(path: str) -> None:
-    """fsync the directory holding ``path``, so a rename or create itself
-    survives power loss (the second half of a durable write)."""
-    d = os.path.dirname(os.path.abspath(path)) or "."
-    try:
-        fd = os.open(d, os.O_RDONLY)
-    except OSError:
-        return
-    try:
-        os.fsync(fd)
-    finally:
-        os.close(fd)
-
-
 class CheckpointMismatchError(ValueError):
     """A checkpoint was written by a different run (seed or configuration
     fingerprint mismatch) and resuming from it is refused."""
@@ -156,12 +143,10 @@ def _to_numpy(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
-def save_pytree(path: str, tree, durable: bool = False) -> None:
+def save_pytree(path: str, tree) -> None:
     """Write a pytree of tensors, arrays or scalars to ``path`` (npz,
     atomic rename), its structure string alongside so a load against the
-    wrong template is an error.  ``durable=True`` also fsyncs the bytes
-    and the directory entry: the write survives power loss, not only the
-    process's death."""
+    wrong template is an error."""
     _maybe_disk_fault("save_pytree", path)
     leaves, r = _flatten(tree)
     arrays = {f"leaf_{i:06d}": _to_numpy(leaf)
@@ -173,12 +158,7 @@ def save_pytree(path: str, tree, durable: bool = False) -> None:
     try:
         with os.fdopen(fd, "wb") as f:
             np.savez(f, **arrays)
-            if durable:
-                f.flush()
-                os.fsync(f.fileno())
         os.replace(tmp, path)
-        if durable:
-            _fsync_dir(path)
     except BaseException:
         if os.path.exists(tmp):
             os.remove(tmp)
@@ -222,71 +202,56 @@ def load_pytree(path: str, like, strict: bool = True):
 
 # -- atomic text, JSON and JSONL writers --------------------------------------
 
-def _atomic_write_text(path: str, text: str, suffix: str,
-                       durable: bool = False) -> None:
+def _atomic_write_text(path: str, text: str, suffix: str) -> None:
     """tmp + ``os.replace`` in the target's directory: a kill at any point
-    leaves the old file or the new one, never a truncated hybrid.
-    ``durable=True`` fsyncs the file and the directory."""
+    leaves the old file or the new one, never a truncated hybrid."""
     d = os.path.dirname(os.path.abspath(path)) or "."
     os.makedirs(d, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=d, suffix=suffix)
     try:
         with os.fdopen(fd, "w") as f:
             f.write(text)
-            if durable:
-                f.flush()
-                os.fsync(f.fileno())
         os.replace(tmp, path)
-        if durable:
-            _fsync_dir(path)
     except BaseException:
         if os.path.exists(tmp):
             os.remove(tmp)
         raise
 
 
-def atomic_write_text(path: str, text: str, durable: bool = False) -> None:
+def atomic_write_text(path: str, text: str) -> None:
     """Crash-consistent replacement for ``open(path, "w").write(text)``."""
     _maybe_disk_fault("atomic_write_text", path)
-    _atomic_write_text(path, text, suffix=".txt.tmp", durable=durable)
+    _atomic_write_text(path, text, suffix=".txt.tmp")
 
 
 def atomic_write_json(path: str, obj, indent: int = 2,
                       sort_keys: bool = False,
-                      trailing_newline: bool = True,
-                      durable: bool = False) -> None:
+                      trailing_newline: bool = True) -> None:
     """Crash-consistent JSON write (tmp + ``os.replace``)."""
     import json
 
     _maybe_disk_fault("atomic_write_json", path)
     text = json.dumps(obj, indent=indent, sort_keys=sort_keys)
     _atomic_write_text(path, text + ("\n" if trailing_newline else ""),
-                       suffix=".json.tmp", durable=durable)
+                       suffix=".json.tmp")
 
 
-def append_jsonl(path: str, lines, durable: bool = False) -> None:
+def append_jsonl(path: str, lines) -> None:
     """Append complete lines, each with one ``os.write`` to an
     ``O_APPEND`` descriptor: a kill between lines loses nothing, a kill
     mid-write tears at most the final line, and two appenders never
-    interleave bytes within a line.  ``durable=True`` fsyncs the
-    descriptor after the batch, and the directory when this call created
-    the file."""
+    interleave bytes within a line."""
     _maybe_disk_fault("append_jsonl", path)
     d = os.path.dirname(os.path.abspath(path)) or "."
     os.makedirs(d, exist_ok=True)
-    created = durable and not os.path.exists(path)
     fd = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_APPEND, 0o644)
     try:
         for line in lines:
             if not line.endswith("\n"):
                 line += "\n"
             os.write(fd, line.encode("utf-8"))
-        if durable:
-            os.fsync(fd)
     finally:
         os.close(fd)
-    if created:
-        _fsync_dir(path)
 
 
 def read_jsonl_tolerant(path: str) -> tuple:

@@ -2239,7 +2239,8 @@ def phase_portfolio(dev):
         bisect_iters=int(eq.bisect_iters), egm_iters=eq.egm_iters,
         golden_egm_iters=g["egm_iters"], dist_iters=eq.dist_iters,
         golden_dist_iters=g["dist_iters"],
-        jax_cpu_seconds=g["jax_cpu_seconds"])
+        jax_cpu_warm_s=g["jax_cpu_seconds"],
+        jax_cpu_first_call_s=g["jax_cpu_first_call_seconds"])
 
     # 13b. the loops alone at the golden r*: steps, walls, host syncs,
     # device kernels a step and the device's busy share

@@ -15,7 +15,8 @@ the port's own build is held to it.  Held:
 * one push-forward within 1e-15 relative to the largest mass: the port
   sums each target's contributions by a pairwise tree in JAX's source
   order, JAX left to right (``models.portfolio.PortfolioPush``); run
-  twice, the port's push is bitwise itself;
+  twice, the port's push is bitwise itself; its tree, rebuilt in NumPy,
+  as deep as the longest run needs, and bitwise the worst-case tree;
 * the stationary distribution with JAX's step count, within 1e-13;
 * the equilibrium with ``max_bisect`` capped at 8 (and uncapped): JAX's
   trips, r* within 1e-10, capital within 1e-9 relative; the port's EGM
@@ -173,6 +174,45 @@ def test_transition_push_and_distribution_match_jax(household, models):
     dt, itt, diff, st = tp.stationary_portfolio_wealth(pol, R_FREE, WAGE, tm)
     assert int(itt) == int(itj) and int(st) == int(sj) == 0
     np.testing.assert_allclose(_np(dt), np.asarray(dj), rtol=0, atol=1e-13)
+
+
+def test_push_tree_is_as_deep_as_the_longest_run(household, models):
+    """The tree's levels, rebuilt in NumPy from the transition: as many as
+    the longest run needs, each level's mask the same, and the levels a
+    worst-case tree of 2 D N K shares would add hold no pair, so the push
+    is the worst-case tree's bit for bit."""
+    _, tm = models
+    pol = carry.portfolio_policy_from_numpy(
+        *(np.asarray(f) for f in household[0]), device="cpu")
+    trt = tp.portfolio_wealth_transition(pol, R_FREE, WAGE, tm)
+    push = tp.portfolio_push(trt)
+    d_size, n, k, n_next = trt.idx.shape
+    per_col = d_size * n * k
+    idx = _np(trt.idx).transpose(3, 0, 1, 2).reshape(n_next, per_col)
+    col = (np.arange(n_next) * d_size)[:, None]
+    target = np.stack([idx + col, idx + 1 + col], axis=1).ravel()
+    target = target[np.argsort(target, kind="stable")]
+    m = target.size
+    pos = np.arange(m)
+    start = np.maximum.accumulate(
+        np.where(np.r_[True, target[1:] != target[:-1]], pos, 0))
+    rank, length = pos - start, np.bincount(target)[target]
+    assert len(push.masks) == int(np.ceil(np.log2(length.max())))
+    assert length.max() > 8            # the constrained sources pile up
+    deep, step = [], 1
+    while step < 2 * per_col:
+        deep.append(((rank % (2 * step)) == 0)[:m - step]
+                    & (rank[:m - step] + step < length[:m - step]))
+        step *= 2
+    for j, mask in enumerate(push.masks):
+        assert np.array_equal(_np(mask), deep[j]), j
+    assert not any(mask.any() for mask in deep[len(push.masks):])
+    worst = push._replace(masks=tuple(torch.as_tensor(x) for x in deep))
+    rng = np.random.default_rng(2)
+    d = torch.as_tensor(rng.random((d_size, n)))
+    d /= d.sum()
+    assert (_np(tp._push_forward_portfolio(d, trt, tm, push)).tobytes()
+            == _np(tp._push_forward_portfolio(d, trt, tm, worst)).tobytes())
 
 
 def _replay_steps(jm, max_bisect):

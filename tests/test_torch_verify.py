@@ -1,8 +1,8 @@
 """The port's integrity layer against the JAX package's, on the CPU in f64:
 the packed-row corruption drills, the certificate vocabulary and
 thresholds, the certifier's residuals, the direct stationary solve it
-recomputes with, the SDC sample and recheck, and certification inside a
-sweep.  Size: the JAX verify tests' (``tests/test_verify.py``).
+recomputes with, the perturbed policies that only certification catches,
+the SDC sample and recheck, and certification inside a sweep.  Size: the JAX verify tests' (``tests/test_verify.py``).
 
 Stated tolerances of the certifier's residuals against JAX's on the same
 rows (both re-solve the policy to ``egm_tol`` and the distribution to
@@ -33,6 +33,7 @@ from aiyagari_hark_tpu_torch.models.equilibrium import (
     solve_calibration, solve_calibration_lean)
 from aiyagari_hark_tpu_torch.solver_health import (CONVERGED, MAX_ITER,
                                                    NONFINITE, STALLED)
+from aiyagari_hark_tpu_torch.utils.debug import validate_policy
 from aiyagari_hark_tpu_torch.utils.fingerprint import hashable_kwargs
 
 torch.set_num_threads(1)
@@ -167,8 +168,13 @@ def test_failed_rows_certify_failed_without_recompute():
         assert c[1].failed
 
 
-def test_certify_equilibrium_objects_lean_and_bare():
-    eq = solve_calibration(3.0, 0.6, **CPU, **KW)
+@pytest.fixture(scope="module")
+def solved_cell():
+    return solve_calibration(3.0, 0.6, **CPU, **KW)
+
+
+def test_certify_equilibrium_objects_lean_and_bare(solved_cell):
+    eq = solved_cell
     cert = tv.certify_equilibrium(eq, crra=3.0, labor_ar=0.6, **CPU, **KW)
     assert cert.certified, cert.summary()
     lean = solve_calibration_lean(3.0, 0.6, **CPU, **KW)
@@ -183,6 +189,38 @@ def test_certify_equilibrium_objects_lean_and_bare():
                                                "capital")
     with pytest.raises(TypeError, match="crra"):
         tv.certify_equilibrium(lean, **CPU)
+
+
+@pytest.mark.parametrize("mode,amplitude", [("shift", 0.0),
+                                            ("noise", 1e-6)])
+def test_perturbed_policy_is_jaxs_and_certifies_failed(solved_cell, mode,
+                                                       amplitude):
+    """A one-gridpoint shift or 1e-6 noise on the consumption knots: the
+    JAX package's bits from the same knots, the shift passing every
+    structural check, and certification FAILED
+    (``tests/test_verify.py``)."""
+    import jax.numpy as jnp
+
+    pol = solved_cell.policy
+    jpol = jh.HouseholdPolicy(jnp.asarray(pol.m_knots.numpy()),
+                              jnp.asarray(pol.c_knots.numpy()))
+    bad = tv.perturbed_policy(pol, mode=mode, amplitude=amplitude, seed=3)
+    jbad = jv.perturbed_policy(jpol, mode=mode, amplitude=amplitude,
+                               seed=3)
+    assert (bad.c_knots.numpy().tobytes()
+            == np.asarray(jbad.c_knots).tobytes())
+    assert bad.m_knots is pol.m_knots
+    assert not torch.equal(bad.c_knots, pol.c_knots)
+    if mode == "shift":   # noise can take the constraint knot's c below 0
+        validate_policy(bad)
+    cert = tv.certify_equilibrium(solved_cell._replace(policy=bad),
+                                  crra=3.0, labor_ar=0.6, **CPU, **KW)
+    assert cert.failed, cert.summary()
+
+
+def test_perturbed_policy_rejects_an_unknown_mode(solved_cell):
+    with pytest.raises(ValueError, match="'shift' or 'noise'"):
+        tv.perturbed_policy(solved_cell.policy, mode="flip")
 
 
 # -- SDC sample and recheck ---------------------------------------------------
