@@ -91,14 +91,15 @@ def dist_from_numpy(dist, device=None, dtype=None) -> torch.Tensor:
 
 def sweep_config_from_fields(d: dict) -> SweepConfig:
     """The port's ``SweepConfig`` from the JAX one's fields
-    (``dataclasses.asdict``): the same 17 names.  ``obs`` must be None
-    (observability is not ported, ROADMAP Queue 1 item 8); an unknown or
+    (``dataclasses.asdict``): the same 17 names.  An ``obs`` given as the
+    fields of the JAX ``ObsConfig`` (``asdict`` recurses into it) becomes
+    the port's ``ObsConfig`` with the same 10 fields; an unknown or
     missing field raises ``TypeError``."""
     d = dict(d)
-    if d.get("obs") is not None:
-        raise ValueError("sweep_config_from_fields: obs must be None; "
-                         "observability is not ported (ROADMAP Queue 1 "
-                         "item 8)")
+    if isinstance(d.get("obs"), dict):
+        from .obs.runtime import ObsConfig
+
+        d["obs"] = ObsConfig(**d["obs"])
     return SweepConfig(**d)
 
 

@@ -318,6 +318,10 @@ class AiyagariEconomy:
         final_vals = np.asarray([float(sol.history.A_prev[-1]),
                                  float(sol.history.M_now[-1])])
         if sol.status == NONFINITE or not np.isfinite(final_vals).all():
+            from .obs.runtime import emit_event
+
+            emit_event("SOLVER_DIVERGED", where="facade",
+                       status=status_name(sol.status))
             raise SolverDivergenceError(
                 f"economy.solve() produced non-finite results "
                 f"(status={status_name(sol.status)}, final A/M="

@@ -306,7 +306,8 @@ def solve_credit_crunch(model_loose: SimpleModel, disc_fac, crra, b_path,
     be small: savings at t respond to the whole future rate path (0.02
     converges on the 0.5 tightening phased in over 24 periods, 0.05
     diverges)."""
-    from ..ops.grids import make_asset_grid
+    # the per-date grids keep model_loose's reference layout
+    from ..ops.grids import make_asset_grid  # grid-ok
     from .transition import _row_sums, device_scalars, forward_pass
 
     like = model_loose.a_grid
@@ -320,8 +321,9 @@ def solve_credit_crunch(model_loose: SimpleModel, disc_fac, crra, b_path,
     b_loose = float(model_loose.borrow_limit)
     a_min = float(a_host[0]) - b_loose
     a_grids = torch.as_tensor(np.stack([
-        b + make_asset_grid(a_min, a_max - b, a_count, a_nest_fac,
-                            dtype=torch.float64).numpy()
+        b + make_asset_grid(  # grid-ok
+            a_min, a_max - b, a_count, a_nest_fac,
+            dtype=torch.float64).numpy()
         for b in b_path]), dtype=dt, device=dev)
     if np.isclose(b_path[0], b_loose) and not np.allclose(
             a_grids[0].cpu().numpy(), a_host, rtol=1e-6):

@@ -22,7 +22,8 @@ from typing import NamedTuple
 import torch
 
 from ..device import resolve_device, resolve_dtype
-from ..ops.grids import make_asset_grid
+# the KS path keeps the reference grid: no grid policy
+from ..ops.grids import make_asset_grid  # grid-ok
 from ..ops.interp import interp1d_rowwise, m_bracket
 from ..ops.markov import (
     aggregate_markov_matrix,
@@ -103,8 +104,9 @@ def build_ks_calibration(agent: AgentConfig, econ: EconomyConfig,
     dt = resolve_dtype(dtype)
     n = agent.labor_states
     s_count = 4 * n
-    a_grid = make_asset_grid(agent.a_min, agent.a_max, agent.a_count,
-                             agent.a_nest_fac, dtype=dt, device=dev)
+    a_grid = make_asset_grid(  # grid-ok: KS reference parity
+        agent.a_min, agent.a_max, agent.a_count, agent.a_nest_fac,
+        dtype=dt, device=dev)
     tauchen = tauchen_labor_process(n, econ.labor_ar, econ.labor_sd,
                                     bound=agent.labor_bound, dtype=dt,
                                     device=dev)

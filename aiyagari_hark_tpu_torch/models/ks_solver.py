@@ -279,10 +279,11 @@ def solve_ks_economy(agent: AgentConfig, econ: EconomyConfig,
     ``dist_discard``: periods dropped per path before the regression
     (default ``econ.t_discard`` for one path, else a short window).
 
-    The JAX package also journals a ``SOLVER_DIVERGED`` event before it
-    raises; the port has no event journal yet (ROADMAP Queue 1 item 8).
+    A non-finite saving rule journals ``SOLVER_DIVERGED`` (``where=
+    "ks_outer"``) into the active obs scope before it raises.
     """
     from ..utils.checkpoint import (
+        CORRUPT_NPZ_ERRORS,
         CheckpointMismatchError,
         config_fingerprint,
         load_ks_checkpoint,
@@ -466,7 +467,7 @@ def solve_ks_economy(agent: AgentConfig, econ: EconomyConfig,
             if os.path.exists(sidecar):
                 tag = None
                 try:
-                    tag, state = load_pytree(
+                    tag, state = load_pytree(  # integrity-ok
                         sidecar, (np.zeros((), np.int64), sim_init))
                 except ValueError as e:
                     warnings.warn(
@@ -494,12 +495,24 @@ def solve_ks_economy(agent: AgentConfig, econ: EconomyConfig,
                     f"trajectory is approximate, not exact", stacklevel=2)
         policy_file = checkpoint_path + ".policy.npz"
         if os.path.exists(policy_file):
-            tag, pol = load_pytree(policy_file,
-                                   (np.zeros((), np.int64), policy_seed))
-            if int(tag) == int(ck.iteration):
+            tag = None
+            try:
+                # only a warm start: the npz's CRC-32 rejects a damaged
+                # file (caught below), and the solve re-converges from
+                # the identity guess
+                tag, pol = load_pytree(policy_file,  # integrity-ok
+                                       (np.zeros((), np.int64),
+                                        policy_seed))
+            except CORRUPT_NPZ_ERRORS as e:
+                warnings.warn(
+                    f"policy sidecar {policy_file} is unreadable ({e}) — "
+                    f"the household solve restarts from the identity "
+                    f"guess; the continued trajectory is approximate, "
+                    f"not exact", stacklevel=2)
+            if tag is not None and int(tag) == int(ck.iteration):
                 policy_seed = KSPolicy(*(torch.as_tensor(x).to(dev, dt)
                                          for x in pol))
-            else:
+            elif tag is not None:
                 warnings.warn(
                     f"policy sidecar {policy_file} is tagged for iteration "
                     f"{int(tag)} but the checkpoint is at "
@@ -568,6 +581,10 @@ def solve_ks_economy(agent: AgentConfig, econ: EconomyConfig,
         new_i, new_s, rsq_h = host[4:6], host[6:8], host[8:10]
         egm_iters, egm_status = int(host[10]), int(host[11])
         if not all(math.isfinite(x) for x in new_i + new_s):
+            from ..obs.runtime import emit_event
+
+            emit_event("SOLVER_DIVERGED", where="ks_outer", iteration=it,
+                       status="NONFINITE")
             raise SolverDivergenceError(
                 f"KS outer iteration {it}: saving-rule regression produced "
                 f"non-finite parameters (intercept={new_i}, slope={new_s}). "

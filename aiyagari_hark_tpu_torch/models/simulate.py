@@ -283,11 +283,12 @@ def make_sim_dist_grid(cal: KSCalibration, dist_count: int = 500,
                        top_factor: float = 2.0) -> torch.Tensor:
     """Histogram support: 0 (the borrowing limit), then an exp-mult grid
     up to ``top_factor`` times the policy grid's top."""
-    from ..ops.grids import make_grid_exp_mult
+    # the KS panel histogram keeps the reference layout
+    from ..ops.grids import make_grid_exp_mult  # grid-ok
 
-    inner = make_grid_exp_mult(1e-3, top_factor * float(cal.a_grid[-1]),
-                               dist_count - 1, 2, dtype=cal.a_grid.dtype,
-                               device=cal.a_grid.device)
+    inner = make_grid_exp_mult(  # grid-ok
+        1e-3, top_factor * float(cal.a_grid[-1]), dist_count - 1, 2,
+        dtype=cal.a_grid.dtype, device=cal.a_grid.device)
     return torch.cat([torch.zeros((1,), dtype=inner.dtype,
                                   device=inner.device), inner])
 

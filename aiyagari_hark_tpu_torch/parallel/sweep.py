@@ -28,9 +28,16 @@ transfer.
   restores them bit for bit; a ``SweepConfig.sidecar_path`` records the
   run's counters and roots for the next run's work model and same-cell
   warm seeds.
+* observability: with ``obs`` (an ``obs.ObsConfig`` or a shared
+  ``obs.Obs``) the run is the active scope of its bundle: the root span
+  "sweep/run", a span per bucket, recheck, quarantine rung and
+  certification, the JAX package's journal events and metrics at each
+  seam, the cost ledger and device telemetry under ``profile=True``.
+  Every one is host-side, around calls whose rows are already on the
+  host: it moves no bit and adds no device synchronisation.
 
 Not ported, raising ``NotImplementedError`` naming the ROADMAP item:
-``mesh`` and ``state_shards > 1`` (Queue 1 item 6), ``obs`` (item 8).
+``mesh`` and ``state_shards > 1`` (Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device, resolve_dtype
+from ..obs.runtime import NULL_OBS, resolve_obs
 from ..solver_health import NONFINITE, is_failure, status_name
 from ..utils.checkpoint import (CORRUPT_NPZ_ERRORS, CheckpointMismatchError,
                                 load_sweep_sidecar, save_sweep_sidecar)
@@ -258,11 +266,11 @@ def _load_sidecar(path, fingerprint):
     try:
         return load_sweep_sidecar(path, fingerprint)
     except CheckpointMismatchError as e:
-        warnings.warn(f"sweep sidecar ignored: {e}", stacklevel=4)
+        warnings.warn(f"sweep sidecar ignored: {e}", stacklevel=5)
         return None
     except IntegrityError as e:
         warnings.warn(f"sweep sidecar failed integrity verification: {e}",
-                      stacklevel=4)
+                      stacklevel=5)
         return None
     except CORRUPT_NPZ_ERRORS:
         return None
@@ -431,10 +439,102 @@ def _timed_launch(device_call, label, fn, *args):
     return packed, t[0]
 
 
+def _launch_work_model(scn, methods: dict, model_kwargs: dict, dtype):
+    """``work(packed) -> (flops, bytes)`` of one batched launch: the
+    kernels' work model (``obs.profile.launch_work``) at this
+    configuration's shapes (the grid's point counts, computed on the
+    host) and the steps the launch's rows report.  Counted at the run's
+    dtype (a two-phase precision's descent steps run narrower)."""
+    from ..obs.profile import launch_work
+    from ..ops.grids import grid_point_counts
+    from ..utils.config import resolve_grid
+
+    schema = scn.schema
+    cols = [schema.idx(f) for f in schema.work]
+    grid = model_kwargs.get("grid", "reference")
+    tail = model_kwargs.get("grid_tail", "analytic")
+    a_count, d_count = grid_point_counts(
+        grid, int(model_kwargs.get("a_count", 32)),
+        int(model_kwargs.get("dist_count", 500)),
+        a_min=float(model_kwargs.get("a_min", 0.001)),
+        a_max=float(model_kwargs.get("a_max", 50.0)),
+        nest_fac=int(model_kwargs.get("a_nest_fac", 2)),
+        borrow_limit=float(model_kwargs.get("borrow_limit", 0.0)),
+        tail=tail)
+    closed = resolve_grid(grid).compact and tail == "analytic"
+    n_states = int(model_kwargs.get("labor_states", 7))
+    itemsize = canonical_dtype(dtype).itemsize
+
+    def work(packed):
+        packed = np.asarray(packed, dtype=np.float64)
+        egm_steps, dist_steps = (float(np.nansum(packed[:, c]))
+                                 for c in cols)
+        nbytes, ops = launch_work(methods, itemsize, len(packed), n_states,
+                                  a_count, d_count, egm_steps, dist_steps,
+                                  tail=closed)
+        return ops, nbytes
+
+    return work
+
+
+def _bucket_seam(obs, scn, bsp, bi: int, cells, lanes: int, warm: bool,
+                 wall: float, packed, prof=None, prof_key=None,
+                 work_of=None, skew: Optional[float] = 1.0) -> None:
+    """The observability of one finished launch (a bucket, or the locked
+    launch as bucket 0), all from the rows already on the host: the
+    ledger's launch, the span's wall and its descent/polish split from
+    the returned counters, ``BUCKET_LAUNCH``, the bucket-wall histogram,
+    the lane occupancy and device work skew gauges, a device-memory
+    sample."""
+    schema = scn.schema
+    if prof is not None:
+        prof.record_launch(prof_key, wall, tracer=obs.tracer,
+                           work=None if work_of is None else work_of(packed))
+    bsp.annotate(wall_s=wall)
+    if schema.phases is not None:
+        bsp.subdivide(
+            {"descent": float(packed[:, schema.idx(schema.phases[0])].sum()),
+             "polish": float(packed[:, schema.idx(schema.phases[1])].sum())},
+            prefix="sweep/phase/")
+    obs.event("BUCKET_LAUNCH", bucket=int(bi), scenario=scn.name,
+              cells=[int(c) for c in cells], warm=warm, wall_s=wall)
+    obs.histogram("aiyagari_sweep_bucket_wall_seconds",
+                  "per-bucket launch wall").observe(wall)
+    if obs.enabled:
+        # a bucket launches exactly its cells on one device: occupancy 1,
+        # skew 1 (the gauges keep the JAX package's names)
+        obs.gauge("aiyagari_sweep_bucket_lane_occupancy",
+                  "real cells / padded lanes of the last bucket"
+                  ).set(len(cells) / float(lanes))
+        if skew is not None:
+            obs.gauge("aiyagari_sweep_bucket_device_work_skew",
+                      "max/min per-device predicted work of the last "
+                      "bucket").set(skew)
+        obs.sample_devices(where=f"sweep/bucket{bi}")
+
+
+def _ledger_key(obs, scn, kwargs_items, dtype, device, warm: bool,
+                lanes: int, fault_mode):
+    """The cost ledger's key and entry of one launch shape (None without
+    a ledger): the JAX package's identity (work fingerprint, cold/warm,
+    lane count, fault hook, one shard)."""
+    prof = obs.cost_ledger
+    if prof is None:
+        return None, None
+    flavor = "warm" if warm else "cold"
+    key = ("sweep", scn.name,
+           work_fingerprint(kwargs_items, dtype, scenario=scn.name), flavor,
+           int(lanes), fault_mode, 1)
+    prof.capture(key, label=f"sweep/{scn.name}/{flavor}{int(lanes)}",
+                 device=device, dtype=dtype)
+    return prof, key
+
+
 def _solve_scheduled(scn, sweep: SweepConfig, cells_p, cells_nom,
                      fault_iters, fault_mode, dtype, device, kwargs_items,
                      model_kwargs, device_call, perturb=0.0, side=None,
-                     ledger=None, inject_preempt=None):
+                     ledger=None, inject_preempt=None, obs=NULL_OBS,
+                     work_of=None):
     """The balanced solve: returns the packed rows ``[C, width]`` in the
     original cell order, the summed launch wall, the bucket of each cell,
     the predicted work, each cell's bracket seed (None: cold) and which
@@ -526,12 +626,20 @@ def _solve_scheduled(scn, sweep: SweepConfig, cells_p, cells_nom,
                          for t in targets]
         warm = seeds is not None
         fn = scn.batched_solver(dtype, kwargs_items, fault_mode, warm)
-        packed, launch_wall = _timed_launch(
-            device_call, f"sweep bucket {bi}", fn, cells_p[lanes], device,
-            seeds, None if fault_iters is None else fault_iters[lanes])
+        prof, prof_key = _ledger_key(obs, scn, kwargs_items, dtype, device,
+                                     warm, len(lanes), fault_mode)
+        with obs.span("sweep/bucket", bucket=int(bi), cells=len(bucket),
+                      lanes=len(lanes), warm=warm,
+                      device_profile=True) as bsp:
+            packed, launch_wall = _timed_launch(
+                device_call, f"sweep bucket {bi}", fn, cells_p[lanes],
+                device, seeds,
+                None if fault_iters is None else fault_iters[lanes])
         wall_total += launch_wall
         results[lanes] = packed
         solved[bucket] = True
+        _bucket_seam(obs, scn, bsp, bi, bucket, len(lanes), warm,
+                     launch_wall, packed, prof, prof_key, work_of)
         if warm:
             for pos, li in enumerate(lanes):
                 seeds_used[li] = seeds[pos]
@@ -647,12 +755,11 @@ class ScenarioSweepResult:
         return _scheduled_skew(self.total_work(), self.bucket)
 
 
-def _check_unported(sweep: SweepConfig, mesh, obs) -> None:
+def _check_unported(sweep: SweepConfig, mesh) -> None:
     """Raise for every knob whose machinery the port lacks."""
     for value, what, item in (
             (mesh, "mesh (the cell-sharded sweep)", "6"),
-            (sweep.state_shards > 1, "state_shards > 1", "6"),
-            (obs is not None or sweep.obs is not None, "obs", "8")):
+            (sweep.state_shards > 1, "state_shards > 1", "6")):
         if value:
             raise NotImplementedError(
                 f"{what} is not ported yet: ROADMAP Queue 1 item {item}")
@@ -682,18 +789,49 @@ def run_sweep(scenario, sweep: SweepConfig = SweepConfig(), cells=None,
     if cells is None:
         cells = sweep.cells()
     cells = np.asarray(cells, dtype=np.float64)
-    return _run_sweep_impl(
+    return _run_sweep_shell(
         scn, sweep, cells, dtype, device, mesh, timer, perturb, quarantine,
         max_retries, inject_fault, resume_path, retry, inject_transient,
         inject_preempt, inject_sdc, cert_thresholds, obs, **model_kwargs)
 
 
-def _run_sweep_impl(scn, sweep, cells_nom, dtype, device, mesh, timer,
-                    perturb, quarantine, max_retries, inject_fault,
-                    resume_path, retry, inject_transient, inject_preempt,
-                    inject_sdc, cert_thresholds, obs,
+def _run_sweep_shell(scn, sweep, cells, dtype, device, mesh, timer,
+                     perturb, quarantine, max_retries, inject_fault,
+                     resume_path, retry, inject_transient, inject_preempt,
+                     inject_sdc, cert_thresholds, obs, **model_kwargs):
+    """The observability shell around the solve: the ``obs`` argument
+    (else ``sweep.obs``) resolved to a bundle, made the ACTIVE scope (so
+    the deep seams -- retries, the ledger's restore and checksums -- land
+    in this run's journal), the root span "sweep/run" around the whole
+    run.  A bundle built here from an ``ObsConfig`` is closed here, even
+    when the run leaves by ``Interrupted``; a caller's ``Obs`` stays
+    open.  Both entry points call this directly, so a warning inside the
+    impl is four frames below the user's call."""
+    _check_unported(sweep, mesh)
+    obs, owned = resolve_obs(obs if obs is not None else sweep.obs)
+    try:
+        with obs.activate(), obs.span(
+                "sweep/run", schedule=sweep.schedule, cells=len(cells),
+                scenario=scn.name) as sp:
+            res = _run_sweep_impl(
+                scn, sweep, cells, dtype, device, timer, perturb,
+                quarantine, max_retries, inject_fault, resume_path, retry,
+                inject_transient, inject_preempt, inject_sdc,
+                cert_thresholds, obs, **model_kwargs)
+            sp.annotate(wall_s=res.wall_seconds,
+                        skew=res.scheduled_iteration_skew(),
+                        failed_cells=len(res.failed_cells()))
+            return res
+    finally:
+        if owned:
+            obs.close()
+
+
+def _run_sweep_impl(scn, sweep, cells_nom, dtype, device, timer, perturb,
+                    quarantine, max_retries, inject_fault, resume_path,
+                    retry, inject_transient, inject_preempt, inject_sdc,
+                    cert_thresholds, obs,
                     **model_kwargs) -> ScenarioSweepResult:
-    _check_unported(sweep, mesh, obs)
     dev = resolve_device(device)
     dt = resolve_dtype(dtype)
     schema = scn.schema
@@ -702,6 +840,12 @@ def _run_sweep_impl(scn, sweep, cells_nom, dtype, device, mesh, timer,
     if perturb:
         cells_p[:, scn.cells.perturb_axis] += perturb
     n_orig = cells_p.shape[0]
+
+    def cell_attrs(i):
+        # per-cell event attributes named by the scenario's axes
+        return {name: float(cells_nom[i, j])
+                for j, name in enumerate(scn.cells.names)}
+
     fault_mode = None
     fault_iters = None
     if inject_fault is not None:
@@ -718,6 +862,8 @@ def _run_sweep_impl(scn, sweep, cells_nom, dtype, device, mesh, timer,
         model_kwargs.setdefault("kernel", sweep.kernel)
     methods = dict(scn.prepare_kwargs(model_kwargs) or {})
     kwargs_items = hashable_kwargs(model_kwargs)
+    work_of = (_launch_work_model(scn, methods, model_kwargs, dt)
+               if obs.cost_ledger is not None else None)
 
     schedule = sweep.schedule
     if schedule == "auto":
@@ -744,7 +890,7 @@ def _run_sweep_impl(scn, sweep, cells_nom, dtype, device, mesh, timer,
         if sweep.work_model == "sidecar" and side is None:
             warnings.warn("work_model='sidecar' but no valid sidecar at "
                           f"{sweep.sidecar_path!r}; using the heuristic",
-                          stacklevel=3)
+                          stacklevel=4)
     retry_policy = retry if retry is not None else RetryPolicy()
     injector = (TransientInjector(**inject_transient)
                 if inject_transient is not None else None)
@@ -772,15 +918,22 @@ def _run_sweep_impl(scn, sweep, cells_nom, dtype, device, mesh, timer,
          restored_mask) = _solve_scheduled(
             scn, sweep, cells_p, cells_nom, fault_iters, fault_mode, dt,
             dev, kwargs_items, model_kwargs, device_call, perturb=perturb,
-            side=side, ledger=ledger, inject_preempt=inject_preempt)
+            side=side, ledger=ledger, inject_preempt=inject_preempt,
+            obs=obs, work_of=work_of)
     elif ledger is not None and ledger.solved.all():
         # the locked launch finished in the interrupted run: restore it
         # (its quarantine may still be pending)
         rows, wall = ledger.packed, 0.0
     else:
         fn = scn.batched_solver(dt, kwargs_items, fault_mode, False)
-        rows, wall = _timed_launch(device_call, "sweep launch", fn, cells_p,
-                                   dev, None, fault_iters)
+        prof, prof_key = _ledger_key(obs, scn, kwargs_items, dt, dev, False,
+                                     n_orig, fault_mode)
+        with obs.span("sweep/bucket", bucket=0, cells=n_orig, warm=False,
+                      device_profile=True) as bsp:
+            rows, wall = _timed_launch(device_call, "sweep launch", fn,
+                                       cells_p, dev, None, fault_iters)
+        _bucket_seam(obs, scn, bsp, 0, range(n_orig), n_orig, False, wall,
+                     rows, prof, prof_key, work_of, skew=None)
         # the locked launch is bucket 0 of 1 to the seam protocol
         _resilience_seam(
             ledger,
@@ -825,21 +978,28 @@ def _run_sweep_impl(scn, sweep, cells_nom, dtype, device, mesh, timer,
             warnings.warn(
                 f"sdc recheck: skipping ledger-restored cell(s) "
                 f"{sorted(skipped)} (warm seeds unknown, or the row is a "
-                f"serial quarantine outcome)", stacklevel=3)
+                f"serial quarantine outcome)", stacklevel=4)
             sample = np.asarray([i for i in sample
                                  if int(i) not in set(skipped)],
                                 dtype=np.int64)
-        suspects, recheck_wall = _sdc_recheck(
-            scn, rows, cells_p, sample, seeds_used, fault_iters, fault_mode,
-            dt, dev, kwargs_items, device_call)
+        with obs.span("sweep/sdc_recheck", sampled=len(sample)) as rsp:
+            suspects, recheck_wall = _sdc_recheck(
+                scn, rows, cells_p, sample, seeds_used, fault_iters,
+                fault_mode, dt, dev, kwargs_items, device_call)
+        rsp.annotate(wall_s=recheck_wall, suspects=len(suspects))
         sdc_suspected = np.zeros(n_orig, dtype=bool)
         sdc_suspected[suspects] = True
+        for i in suspects:
+            obs.event("SDC_SUSPECTED", cell=int(i), scenario=scn.name,
+                      **cell_attrs(i))
+        obs.counter("aiyagari_sweep_sdc_suspected_total",
+                    "bitwise recheck mismatches").inc(len(suspects))
         if suspects:
             warnings.warn(
                 "sdc recheck: bitwise mismatch for cell(s) "
                 + ", ".join(str(i) for i in suspects)
                 + "; silent data corruption suspected, routing through "
-                "the quarantine ladder", stacklevel=3)
+                "the quarantine ladder", stacklevel=4)
 
     # -- quarantine: the status column is the int64 authority from here on
     status = np.asarray(np.rint(rows[:, status_col]), dtype=np.int64)
@@ -865,18 +1025,29 @@ def _run_sweep_impl(scn, sweep, cells_nom, dtype, device, mesh, timer,
         ladder = tuple(scn.retry_rungs(model_kwargs))[
             :max(0, int(max_retries))]
         for i in np.nonzero(failed)[0]:
+            status_before = int(status[i])
             for attempt, overrides in enumerate(ladder, start=1):
                 retries[i] = attempt
-                row_new = np.asarray(device_call(
-                    f"quarantine retry cell {int(i)}",
-                    lambda: scn.eager_row(
-                        cells_p[i], dt, {**model_kwargs, **overrides},
-                        dev)), dtype=np.float64)
+                with obs.span("sweep/quarantine", cell=int(i),
+                              rung=attempt):
+                    row_new = np.asarray(device_call(
+                        f"quarantine retry cell {int(i)}",
+                        lambda: scn.eager_row(
+                            cells_p[i], dt, {**model_kwargs, **overrides},
+                            dev)), dtype=np.float64)
                 cell_status = int(np.rint(row_new[status_col]))
                 if not is_failure(cell_status):
                     rows[i] = row_new
                     status[i] = cell_status
                     break
+            obs.event("QUARANTINE", cell=int(i), scenario=scn.name,
+                      **cell_attrs(i),
+                      status_before=status_name(status_before),
+                      status_after=status_name(int(status[i])),
+                      recovered=not bool(is_failure(int(status[i]))),
+                      retries=int(retries[i]))
+            obs.counter("aiyagari_sweep_quarantined_cells_total",
+                        "cells routed through the retry ladder").inc()
             # the outcome is final for this run: the launches' seam
             row_led = rows[i].copy()
             row_led[status_col] = float(status[i])
@@ -894,7 +1065,15 @@ def _run_sweep_impl(scn, sweep, cells_nom, dtype, device, mesh, timer,
                 + ", ".join(f"{int(i)} ({status_name(status[i])})"
                             for i in still)
                 + " failed every quarantine retry; their values are "
-                "NaN-masked in the result", stacklevel=3)
+                "NaN-masked in the result", stacklevel=4)
+            # a typed failure past the ladder: the flight recorder's ring
+            # (recent spans and events, the metrics snapshot) as the
+            # post-mortem, journaled FLIGHT_RECORD_DUMP
+            obs.dump_flight(
+                f"{scn.name} sweep: {len(still)} cell(s) exhausted the "
+                "quarantine ladder",
+                cells=[int(i) for i in still],
+                statuses=[status_name(int(status[i])) for i in still])
     # a known-corrupt cell that no rung recovered keeps nothing: every
     # value NaN, every counter 0
     zero_fields = tuple(schema.counters) + tuple(schema.phases or ())
@@ -905,6 +1084,16 @@ def _run_sweep_impl(scn, sweep, cells_nom, dtype, device, mesh, timer,
                 rows[purge, schema.idx(f)] = (0.0 if f in zero_fields
                                               else np.nan)
     rows[:, status_col] = status.astype(np.float64)
+
+    # the precision ladder's escalations, one event per escalated cell
+    escal = None
+    if schema.phases is not None:
+        escal = np.asarray(np.rint(rows[:, schema.idx(schema.phases[2])]),
+                           dtype=np.int64)
+        for i in np.nonzero(escal > 0)[0]:
+            obs.event("PRECISION_ESCALATED", cell=int(i),
+                      scenario=scn.name, **cell_attrs(i),
+                      escalations=int(escal[i]))
 
     if sweep.sidecar_path is not None:
         # this run's counters and roots for the next run's scheduler;
@@ -926,7 +1115,7 @@ def _run_sweep_impl(scn, sweep, cells_nom, dtype, device, mesh, timer,
                 **phase_kw)
         except OSError as e:
             warnings.warn(f"could not write sweep sidecar "
-                          f"{sweep.sidecar_path!r}: {e}", stacklevel=3)
+                          f"{sweep.sidecar_path!r}: {e}", stacklevel=4)
 
     # -- a posteriori certification of the final rows, before the ledger
     # is removed and through the transient retry: a fault here must not
@@ -939,18 +1128,46 @@ def _run_sweep_impl(scn, sweep, cells_nom, dtype, device, mesh, timer,
                 f"scenario {scn.name!r} has no certify_rows hook; "
                 "run without SweepConfig(certify=True)")
         with stopwatch() as cert_sw:
-            certs = device_call(
-                "a posteriori certification",
-                lambda: scn.certify_rows(rows, cells_p, dt, kwargs_items,
-                                         thresholds=cert_thresholds,
-                                         device=dev))
+            with obs.span("sweep/certify", cells=n_orig) as csp:
+                certs = device_call(
+                    "a posteriori certification",
+                    lambda: scn.certify_rows(rows, cells_p, dt,
+                                             kwargs_items,
+                                             thresholds=cert_thresholds,
+                                             device=dev))
         cert_level = np.asarray([c.level for c in certs], dtype=np.int64)
         certify_wall = cert_sw.seconds
+        csp.annotate(wall_s=certify_wall,
+                     failed=int((cert_level == 2).sum()))
+        for i in np.nonzero(cert_level == 2)[0]:
+            obs.event("CERT_FAILED", cell=int(i), scenario=scn.name,
+                      **cell_attrs(i), summary=certs[int(i)].summary())
+        obs.counter("aiyagari_sweep_cert_failed_total",
+                    "cells whose certificate graded FAILED").inc(
+            int((cert_level == 2).sum()))
 
     if ledger is not None:
         # the run is complete: a finished ledger must not satisfy the next
         # run's launches
         ledger.complete()
+
+    # the run's counters in the metrics registry
+    work_total = sum(
+        np.asarray(np.rint(rows[:, schema.idx(f)]), dtype=np.int64)
+        for f in schema.work)
+    obs.counter("aiyagari_sweep_cells_total",
+                "cells solved by sweeps this run").inc(n_orig)
+    obs.counter("aiyagari_sweep_inner_steps_total",
+                "EGM + distribution inner steps").inc(
+        float(work_total.sum()))
+    obs.counter("aiyagari_sweep_quarantine_retries_total",
+                "quarantine ladder rungs consumed").inc(int(retries.sum()))
+    if escal is not None:
+        obs.counter("aiyagari_sweep_precision_escalations_total",
+                    "ladder descent->reference fallbacks").inc(
+            int(escal.sum()))
+    obs.gauge("aiyagari_sweep_wall_seconds",
+              "last sweep's honest batched wall").set(wall)
 
     return ScenarioSweepResult(
         scenario=scn.name, schema=schema,
@@ -1044,11 +1261,24 @@ def run_table2_sweep(sweep: SweepConfig = SweepConfig(), dtype=None,
     ``wall_seconds`` covers the batched launches (model build, solve, the
     rows' one transfer to the host), summed over buckets, each its
     successful attempt only; ``timer`` is called with it.  ``perturb`` is
-    added to each cell's rho before the solve.  ``mesh`` and ``obs``
-    raise ``NotImplementedError`` (see the module docstring)."""
+    added to each cell's rho before the solve.  ``mesh`` raises
+    ``NotImplementedError`` (see the module docstring).
+
+    Observability: with ``obs`` (argument or ``sweep.obs``: an
+    ``obs.ObsConfig`` or a shared ``obs.Obs``) the sweep records a
+    ``sweep/run`` span holding a span per bucket launch (split into
+    descent/polish children from the returned counters), per quarantine
+    rung, recheck and certification; journals the typed events
+    (BUCKET_LAUNCH, QUARANTINE, SDC_SUSPECTED, PRECISION_ESCALATED,
+    CERT_FAILED, RETRY_TRANSIENT, INTERRUPTED, RESUME_RESTORE,
+    INTEGRITY_FAILED) under one ``run_id``; mirrors the sweep's counters
+    into the metrics registry; and under ``profile=True`` keeps the cost
+    ledger (the kernels' work model per launch) and samples device
+    memory at every bucket.  On or off, no bit of the result moves and
+    no device synchronisation is added."""
     from ..scenarios.registry import get_scenario
 
-    res = _run_sweep_impl(
+    res = _run_sweep_shell(
         get_scenario("aiyagari"), sweep,
         np.asarray(sweep.cells(), dtype=np.float64), dtype, device, mesh,
         timer, perturb, quarantine, max_retries, inject_fault, resume_path,

@@ -11,14 +11,14 @@ trees (``PyTreeDef((*, CustomNode(namedtuple[DistPanelState], [*, *, *,
 scheduler sidecar written by either package loads in the other.  Leaves
 load as NumPy arrays; the caller moves them to its device.
 
-Also here: the disk-fault injection hooks, the atomic text, JSON and
-JSONL writers, the tolerant JSONL reader, and the sweep scheduler's
-``SweepSidecar``.  Not ported yet: the fleet leases, ``gc_orphaned_tmp``
-and the writers' ``durable=True`` fsync mode (the serving tier's
-write-ahead log is its only user; ROADMAP Queue 1 item 8).  The JAX
-writers journal a ``DISK_FAULT`` event when an injected fault fires, and
-the sidecar loader an ``INTEGRITY_FAILED`` one; the port has no event
-journal yet (item 8).
+Also here: the disk-fault injection hooks (an injected fault journals
+``DISK_FAULT`` into the active obs scope before it raises), the atomic
+text, JSON and JSONL writers, the tolerant JSONL reader, the sweep of
+orphaned writer temp files (``gc_orphaned_tmp``), and the sweep
+scheduler's ``SweepSidecar`` (a checksum failure journals
+``INTEGRITY_FAILED``).  Not ported yet: the fleet leases and the writers'
+``durable=True`` fsync mode (the serving tier's write-ahead log is its
+only user; ROADMAP Queue 1 item 8b).
 """
 
 from __future__ import annotations
@@ -50,6 +50,7 @@ CORRUPT_NPZ_ERRORS = (OSError, ValueError, EOFError, zipfile.BadZipFile)
 
 _DISK_FAULTS: dict = {}          # op -> {"errno", "count", "match"}
 _DISK_FAULT_LOCK = threading.Lock()
+_DISK_FAULT_TLS = threading.local()
 
 
 def arm_disk_fault(op: str, kind: str = "ENOSPC", count: int = 1,
@@ -71,8 +72,23 @@ def disarm_disk_faults() -> None:
         _DISK_FAULTS.clear()
 
 
+def _fire_disk_fault(op: str, path: str, code: int) -> None:
+    """The injection seam: journal ``DISK_FAULT`` into the active obs
+    scope, then raise the fault, as a full or failing disk raises it."""
+    kind = errno.errorcode.get(code, str(code))
+    _DISK_FAULT_TLS.active = True     # the event's append must not re-fault
+    try:
+        from ..obs.runtime import emit_event
+
+        emit_event("DISK_FAULT", op=str(op), path=str(path),
+                   errno=int(code), kind=kind, injected=True)
+    finally:
+        _DISK_FAULT_TLS.active = False
+    raise OSError(code, f"injected disk fault ({kind})", str(path))
+
+
 def _maybe_disk_fault(op: str, path: str) -> None:
-    if not _DISK_FAULTS:
+    if not _DISK_FAULTS or getattr(_DISK_FAULT_TLS, "active", False):
         return
     with _DISK_FAULT_LOCK:
         plan = _DISK_FAULTS.get(op)
@@ -81,8 +97,7 @@ def _maybe_disk_fault(op: str, path: str) -> None:
             return
         plan["count"] -= 1
         code = plan["errno"]
-    kind = errno.errorcode.get(code, str(code))
-    raise OSError(code, f"injected disk fault ({kind})", str(path))
+    _fire_disk_fault(op, path, code)
 
 
 class CheckpointMismatchError(ValueError):
@@ -273,6 +288,40 @@ def read_jsonl_tolerant(path: str) -> tuple:
     return records, skipped
 
 
+def gc_orphaned_tmp(path: str, max_age_s: float = 3600.0) -> list:
+    """Remove stale temp files of this module's atomic writers next to
+    ``path``.  The writers clean their temp file on any in-process
+    failure, but a hard kill (SIGKILL, OOM, power) between the write and
+    the rename strands one.  Only the writers' own names
+    (``tmp*.npz.tmp``, ``tmp*.json.tmp``, ``tmp*.txt.tmp``) and only
+    files at least ``max_age_s`` old (default one hour: never a
+    concurrent writer's file in flight) are removed, with a warning.
+    Returns the removed paths."""
+    import glob
+    import time
+
+    d = os.path.dirname(os.path.abspath(path)) or "."
+    removed = []
+    now = time.time()
+    ours = [os.path.join(d, f"tmp*{s}")
+            for s in (".npz.tmp", ".json.tmp", ".txt.tmp")]
+    for tmp in sorted(t for pat in ours for t in glob.glob(pat)):
+        try:
+            if now - os.path.getmtime(tmp) >= max_age_s:
+                os.remove(tmp)
+                removed.append(tmp)
+        except OSError:
+            continue
+    if removed:
+        import warnings
+        warnings.warn(
+            f"removed {len(removed)} orphaned checkpoint tmp file(s) "
+            f"next to {path}: " + ", ".join(os.path.basename(r)
+                                            for r in removed),
+            stacklevel=2)
+    return removed
+
+
 # -- the sweep scheduler's sidecar --------------------------------------------
 
 class SweepSidecar(NamedTuple):
@@ -378,6 +427,9 @@ def load_sweep_sidecar(path: str, fingerprint: int) -> SweepSidecar:
             f"{int(fingerprint)}; refusing a stale work model")
     want = side.content_checksum()
     if int(side.checksum) != int(want):
+        from ..obs.runtime import emit_event
+
+        emit_event("INTEGRITY_FAILED", boundary="sidecar", path=path)
         raise IntegrityError(
             f"sweep sidecar {path} failed content-checksum verification "
             f"(stored {int(side.checksum)}, content hashes to {want}) — "

@@ -381,11 +381,13 @@ class SweepConfig:
     ``certify`` grades every cell a posteriori (``verify.certificate``).
     ``grid`` and ``kernel`` are model-kwarg defaults of every cell.
 
-    Not ported, each raising ``NotImplementedError`` in ``run_sweep``
-    when set off its default: ``state_shards > 1`` (ROADMAP Queue 1 item
-    6) and ``obs`` (item 8).  ``compilation_cache`` has nothing to
-    enable under PyTorch (the kernels are built once per process and
-    nothing else is compiled) and is ignored."""
+    ``obs`` is None, an ``obs.ObsConfig`` (a bundle built and closed by
+    the sweep) or an ``obs.Obs`` (the caller's, left open): spans,
+    metrics, the event journal and the cost ledger of the run.  Not
+    ported: ``state_shards > 1`` raises ``NotImplementedError`` in
+    ``run_sweep`` (ROADMAP Queue 1 item 6).  ``compilation_cache`` has
+    nothing to enable under PyTorch (the kernels are built once per
+    process and nothing else is compiled) and is ignored."""
 
     crra_values: Tuple[float, ...] = (1.0, 3.0, 5.0)
     rho_values: Tuple[float, ...] = (0.0, 0.3, 0.6, 0.9)

@@ -82,11 +82,14 @@ def packed_row_checksums(rows) -> np.ndarray:
 def verify_packed_row(row, expected: int, boundary: str,
                       key=None) -> None:
     """Raise ``IntegrityError`` unless ``row``'s checksum is ``expected``
-    (the int64 recorded at solve time).  The JAX package also journals an
-    ``INTEGRITY_FAILED`` event here; the port has no event journal yet
-    (ROADMAP Queue 1 item 8)."""
+    (the int64 recorded at solve time), after journaling
+    ``INTEGRITY_FAILED`` into the active obs scope."""
     got = packed_row_checksum(row)
     if int(got) != int(expected):
+        from ..obs.runtime import emit_event
+
+        emit_event("INTEGRITY_FAILED", boundary=boundary,
+                   key=None if key is None else int(key))
         where = "" if key is None else f" (entry {int(key)})"
         raise IntegrityError(
             f"packed-row checksum mismatch at the {boundary} "

@@ -20,11 +20,13 @@ of ``aiyagari_hark_tpu/utils/resilience.py``).
   is).  ``TransientInjector`` (raise at call k) drives every retry path on
   the CPU.
 
-Host-side only.  Not ported yet: the sweep of orphaned temp files that
-the JAX guard and ledger resume run (``gc_orphaned_tmp``, the serve tier,
-ROADMAP Queue 1 item 8), and the ``INTERRUPTED`` / ``RETRY_TRANSIENT`` /
-``RESUME_RESTORE`` / ``INTEGRITY_FAILED`` / ``DISK_FAULT`` event journal
-(item 8).
+Host-side only.  Each seam journals its typed event into the active obs
+scope (``obs.runtime.emit_event``, a no-op with none), where the JAX
+package journals it: ``INTERRUPTED`` at the poll, ``RETRY_TRANSIENT`` per
+retry, ``RESUME_RESTORE`` and ``INTEGRITY_FAILED`` at the ledger's
+restore, ``DISK_FAULT`` at a failed flush.  The ledger's resume and the
+guard's exit (``gc_paths``) remove orphaned temp files of the atomic
+writers (``checkpoint.gc_orphaned_tmp``).
 """
 
 from __future__ import annotations
@@ -38,8 +40,10 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 
+from ..obs.runtime import emit_event
 from ..solver_health import INTERRUPTED, SolverDivergenceError
-from .checkpoint import CORRUPT_NPZ_ERRORS, load_pytree, save_pytree
+from .checkpoint import (CORRUPT_NPZ_ERRORS, gc_orphaned_tmp, load_pytree,
+                         save_pytree)
 from .fingerprint import packed_row_checksum, packed_row_checksums
 
 
@@ -95,6 +99,8 @@ def raise_if_interrupted(what: str, resume_path: Optional[str] = None,
     if _INTERRUPT["flag"]:
         sig = _INTERRUPT["signum"]
         name = "" if sig is None else f" ({signal.Signals(sig).name})"
+        emit_event("INTERRUPTED", what=what, signum=sig,
+                   resume_path=resume_path, progress=progress or {})
         raise Interrupted(
             f"{what} interrupted at a safe boundary{name}"
             + (f"; resume from {resume_path}" if resume_path else ""),
@@ -106,11 +112,18 @@ class preemption_guard:
     graceful shutdown.  The first signal sets the flag; a second raises
     ``KeyboardInterrupt`` at once.  Handlers are restored on exit, and
     the outermost guard's exit clears the flag.  Guards nest; outside the
-    main thread the guard is flag-only."""
+    main thread the guard is flag-only.  ``gc_paths``: checkpoint or ledger
+    paths whose directories are swept at exit for the atomic writers'
+    temp files older than ``max_tmp_age_s`` (``checkpoint.
+    gc_orphaned_tmp``: a hard kill between a write and its rename strands
+    one)."""
 
-    def __init__(self, signals=(signal.SIGTERM, signal.SIGINT)):
+    def __init__(self, signals=(signal.SIGTERM, signal.SIGINT),
+                 gc_paths=(), max_tmp_age_s: float = 3600.0):
         self._signals = tuple(signals)
         self._previous: dict = {}
+        self._gc_paths = tuple(gc_paths)
+        self._max_tmp_age_s = max_tmp_age_s
 
     def _handler(self, signum, frame):
         if _INTERRUPT["flag"]:
@@ -140,6 +153,8 @@ class preemption_guard:
         _GUARD_DEPTH = max(0, _GUARD_DEPTH - 1)
         if _GUARD_DEPTH == 0:
             clear_interrupt()
+        for p in self._gc_paths:
+            gc_orphaned_tmp(p, max_age_s=self._max_tmp_age_s)
         return False
 
 
@@ -292,6 +307,10 @@ def retry_transient(fn: Callable[[], object],
             if not classify(e) or attempt == attempts - 1:
                 raise
             d = policy.delay(attempt)
+            emit_event("RETRY_TRANSIENT", label=label,
+                       attempt=attempt + 1, max_attempts=attempts,
+                       delay_s=d,
+                       error=f"{type(e).__name__}: {str(e)[:160]}")
             warnings.warn(
                 f"transient fault in {label} (attempt {attempt + 1}/"
                 f"{attempts}): {type(e).__name__}: {str(e)[:200]} — "
@@ -371,6 +390,7 @@ class LedgerState:
         run; an unreadable or foreign one warns and starts fresh (the
         first flush overwrites it)."""
         self = cls(path, fingerprint, n_cells, width=width)
+        gc_orphaned_tmp(path)     # a prior hard kill may have stranded tmps
         if not os.path.exists(path):
             return self
         try:
@@ -394,6 +414,11 @@ class LedgerState:
         self.checksums = np.array(led.checksums)
         self._verify_rows()
         self.resumed = bool(self.solved.any() or self.retried.any())
+        if self.resumed:
+            emit_event("RESUME_RESTORE", path=path,
+                       cells_restored=int(self.solved.sum()),
+                       cells_retried=int(self.retried.sum()),
+                       corrupt_cells=list(self.corrupt_cells))
         return self
 
     def _verify_rows(self) -> None:
@@ -415,6 +440,8 @@ class LedgerState:
             self.bucket[i] = -1
             self.checksums[i] = 0
         self.corrupt_cells = bad
+        emit_event("INTEGRITY_FAILED", boundary="ledger",
+                   path=self.path, cells=bad)
         warnings.warn(
             f"sweep resume ledger {self.path}: row checksum verification "
             f"failed for cell(s) {bad} — silent corruption; those cells "
@@ -449,6 +476,8 @@ class LedgerState:
                 checksums=self.checksums,
                 fingerprint=np.asarray(self.fingerprint, np.int64)))
         except OSError as e:
+            emit_event("DISK_FAULT", op="ledger_flush", path=self.path,
+                       error=str(e), injected=False)
             warnings.warn(
                 f"sweep ledger flush to {self.path} failed ({e}); "
                 "skipping this flush — the sweep continues from memory "

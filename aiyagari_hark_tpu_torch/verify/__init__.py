@@ -2,7 +2,7 @@
 posteriori certification of solved equilibria (``certificate``) and the
 corruption drills (``inject``) of the sweep's SDC recheck, its resume
 ledger and certification.  The solution store's drill waits for the
-store (ROADMAP Queue 1 item 8)."""
+store (ROADMAP Queue 1 item 8b)."""
 
 from .certificate import (  # noqa: F401
     CERT_CHECKS,

@@ -470,7 +470,11 @@ def certify_equilibrium(result, crra=None, labor_ar=None, labor_sd=0.2,
     ``capital`` (a ``LeanEquilibrium``: the policy and distribution are
     re-solved at r*), or a bare r*.  ``crra``/``labor_ar``/``labor_sd``
     locate the cell; ``model_kwargs`` are ``solve_calibration``'s (grid
-    sizes, tolerances, prices; method knobs ignored)."""
+    sizes, tolerances, prices; method knobs ignored).  A FAILED
+    certificate journals ``CERT_FAILED`` (``where="certify"``) into the
+    active obs scope; the sweep attributes its own at the call site."""
+    from ..obs.runtime import active_span, emit_event
+
     if crra is None or labor_ar is None:
         raise TypeError("certify_equilibrium needs the calibration cell: "
                         "pass crra= and labor_ar= (and labor_sd=)")
@@ -482,19 +486,30 @@ def certify_equilibrium(result, crra=None, labor_ar=None, labor_sd=0.2,
     scalar = np.isscalar(result) or isinstance(result, float)
     r_star = float(result if scalar else result.r_star)
     capital = None if scalar else getattr(result, "capital", None)
+
+    def _graded(cert: Certificate) -> Certificate:
+        if cert.failed:
+            emit_event("CERT_FAILED",
+                       cell=(float(crra), float(labor_ar),
+                             float(labor_sd)),
+                       summary=cert.summary(), where="certify")
+        return cert
+
     if policy is not None and distribution is not None:
-        resids = _object_residuals(r_star, policy, distribution, float(crra),
-                                   float(labor_ar), float(labor_sd), dt,
-                                   dev, model_kwargs)
-        return thr.certificate(resids)
+        with active_span("verify/certify", form="objects"):
+            resids = _object_residuals(
+                r_star, policy, distribution, float(crra), float(labor_ar),
+                float(labor_sd), dt, dev, model_kwargs)
+        return _graded(thr.certificate(resids))
     cap = r_star if capital is None else float(capital)
-    resids = _recompute_residuals(
-        [(float(crra), float(labor_ar), float(labor_sd))], [r_star], [cap],
-        dt, dev, dict(hashable_kwargs(model_kwargs)))[0]
+    with active_span("verify/certify", form="recompute"):
+        resids = _recompute_residuals(
+            [(float(crra), float(labor_ar), float(labor_sd))], [r_star],
+            [cap], dt, dev, dict(hashable_kwargs(model_kwargs)))[0]
     if capital is None:
         # a bare r* makes no capital claim
         resids[CERT_CHECKS.index("capital")] = 0.0
-    return thr.certificate(resids)
+    return _graded(thr.certificate(resids))
 
 
 def _object_residuals(r_star, policy, distribution, crra, labor_ar,

@@ -13,7 +13,7 @@ in a solve calls these; each corrupts exactly one artifact.
   certification catches.
 
 ``corrupt_store_entry`` belongs to the solution store of the serve tier
-(ROADMAP Queue 1 item 8).
+(ROADMAP Queue 1 item 8b).
 """
 
 from __future__ import annotations
@@ -43,13 +43,13 @@ def _rewrite_npz_leaf(path: str, leaf_index: int, mutate) -> None:
     """Rewrite one ``save_pytree`` leaf in place, every other leaf and the
     structure string kept byte for byte: the file still parses and still
     claims its solve-time checksums."""
-    with np.load(path) as data:
+    with np.load(path) as data:   # integrity-ok: the corruption injector
         arrays = {k: np.array(data[k]) for k in data.files}
     key = f"leaf_{leaf_index:06d}"
     if key not in arrays:
         raise KeyError(f"{path} has no leaf {leaf_index}")
     arrays[key] = mutate(arrays[key])
-    with open(path, "wb") as f:   # a deliberate, non-atomic corruption
+    with open(path, "wb") as f:   # atomic-ok: deliberate corruption injector
         np.savez(f, **arrays)
 
 

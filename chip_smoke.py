@@ -125,6 +125,16 @@ Phases (each raises on failure, and the script then exits non-zero):
      recomputed, each bitwise the uninterrupted run; a sidecar written and
      reread (predicted work = measured work) and the warm sidecar-seeded
      run's work against locked; the ledger's flush cost.
+ 15. observability (float64, the paper's width, 12 cells, locked), per
+     kernel policy (reference, fused): the sweep with the journal, the
+     trace, the cost ledger and a torch.profiler trace of its bucket, its
+     rows bitwise phase 3's (5's) and its launches theirs; the journal's
+     lifecycle events and one device-memory high-water mark under the
+     card's memory; the ledger's snapshot with the card's peaks not
+     assumed; the profiler trace naming the path's __global__ kernels;
+     host syncs equal with obs off, journaled and profiled; walls off
+     against on, in turns.  Then a quarantine and a transient drill, each
+     journaling exactly one typed event.
 Every phase line carries the card's name and power limit.  The line
 before the last two holds the kernels' JSON record; then the card's name
 and power limit from nvidia-smi; the last line is the result.
@@ -147,9 +157,6 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "tests", "data", "table2_golden.json")
 WIDTH = dict(a_count=32, dist_count=500)      # the paper's grid, 7 states
-HBM_BYTES_PER_S = 3.35e12                     # H100 SXM data sheet
-PEAK_FLOPS = {torch.float64: 34e12,           # FP64 outside the tensor cores
-              torch.float32: 67e12}           # FP32 outside the tensor cores
 # f64: the JAX kernel-parity tolerance.  f32: two runs of a contraction,
 # each certified to within tol of its previous iterate with rate at most
 # the accelerator's cap 0.995, lie within tol / (1 - 0.995) = 200 tol of
@@ -653,41 +660,41 @@ def escalation_check(dev):
 
 
 def _bound(dt, nbytes: float, flops: float):
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dt]
+    """(least ms, "bytes" or "operations") at the H100 SXM's data-sheet
+    peaks (HBM3 bytes/s; FP64/FP32 outside the tensor cores), the
+    package's constants (``utils.timing``) that the cost ledger reads."""
+    from aiyagari_hark_tpu_torch.utils.timing import (H100_SXM_BYTES_PER_S,
+                                                      H100_SXM_PEAK_FLOPS)
+
+    t_bytes = nbytes / H100_SXM_BYTES_PER_S
+    t_ops = flops / H100_SXM_PEAK_FLOPS[str(dt).rsplit(".", 1)[-1]]
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def _dims(dt, model):
+    """(itemsize, N, A, D) of a lane-batched model."""
+    return (torch.finfo(dt).bits // 8, model.labor_levels.shape[1],
+            model.a_grid.shape[1], model.dist_grid.shape[1])
+
+
 def egm_work(dt, C, model, iters, K=None):
-    """(bytes, operations) of the EGM fixed points of this run: inputs
-    read once, outputs written once; per step and lane, per (state,
-    asset) pair 3 flops for m', ~log2(K) compares and 5 flops of
-    interpolation, a pow, 2N-1 for the expectation, a pow and 2 more; 4
-    per knot for the sup-norm; every 32nd step 8 more per knot (dot
-    products and extrapolation).  A pow counts as one operation."""
-    s = torch.finfo(dt).bits // 8
-    N = model.labor_levels.shape[1]
-    A = model.a_grid.shape[1]
-    K = A + 1 if K is None else K
-    nbytes = C * (s * (2 * N * K + A + N + N * N + 5) + s * 2 * N * K + 4 + s)
-    per_step = (N * A * (3 + math.log2(K) + 5 + 1 + (2 * N - 1) + 3)
-                + 4 * N * K + 8 * N * K / 32)
-    return nbytes, per_step * float(iters.sum())
+    """(bytes, operations) of the EGM fixed points of this run: the
+    package's work model (``obs.profile.egm_work``, which the cost ledger
+    reads too) on this run's summed steps."""
+    from aiyagari_hark_tpu_torch.obs import profile as P
+
+    s, N, A, _ = _dims(dt, model)
+    return P.egm_work(s, C, N, A, float(iters.sum()), K)
 
 
 def dist_work(dt, C, model, iters):
-    """(bytes, operations) of the distribution fixed points of this run:
-    inputs (int64 index, weight, P, dist0) read once, outputs written
-    once; per step and lane 4 D N flops of lottery, D N (2N-1) of labor
-    mix, 2 D N for the sup-norm, and every 64th step 10 D N more."""
-    s = torch.finfo(dt).bits // 8
-    N = model.labor_levels.shape[1]
-    D = model.dist_grid.shape[1]
-    dn = D * N
-    nbytes = C * (8 * dn + s * dn + s * N * N + s * dn + s * dn + 4 + s)
-    per_step = dn * (4 + (2 * N - 1) + 2) + 10 * dn / 64
-    return nbytes, per_step * float(iters.sum())
+    """(bytes, operations) of the distribution fixed points of this run
+    (``obs.profile.dist_work``)."""
+    from aiyagari_hark_tpu_torch.obs import profile as P
+
+    s, N, _, D = _dims(dt, model)
+    return P.dist_work(s, C, N, D, float(iters.sum()))
 
 
 def egm_bound(dt, C, model, iters):
@@ -699,23 +706,13 @@ def dist_bound(dt, C, model, iters):
 
 
 def fused_bound(dt, C, model, egm_iters, dist_iters, tail):
-    """Least time for the fused supply evaluations of this run: the EGM
-    and distribution operations above on this run's steps, plus per lane
-    the transition's D N interpolations (3 flops for m, ~log2(K) and
-    ~log2(D) compares, 5 of interpolation, 2 clamps, 3 for the weight);
-    bytes: the fused inputs (knots [N, K], a, the support [D], levels,
-    P, scalars, h, dist0) read once and its outputs (knots, dist, four
-    statistics) written once."""
-    s = torch.finfo(dt).bits // 8
-    N = model.labor_levels.shape[1]
-    A = model.a_grid.shape[1]
-    D = model.dist_grid.shape[1]
-    K = A + (3 if tail else 1)
-    ops = (egm_work(dt, C, model, egm_iters, K)[1]
-           + dist_work(dt, C, model, dist_iters)[1]
-           + C * D * N * (3 + math.log2(K) + math.log2(D) + 5 + 2 + 3))
-    nbytes = C * (s * (2 * N * K + A + D + N + N * N + 5 + N + D * N)
-                  + s * (2 * N * K + D * N) + 2 * 4 + 2 * s)
+    """Least time for the fused supply evaluations of this run
+    (``obs.profile.fused_work`` on this run's steps)."""
+    from aiyagari_hark_tpu_torch.obs import profile as P
+
+    s, N, A, D = _dims(dt, model)
+    nbytes, ops = P.fused_work(s, C, N, A, D, float(egm_iters.sum()),
+                               float(dist_iters.sum()), tail)
     return _bound(dt, nbytes, ops)
 
 
@@ -2473,7 +2470,9 @@ def phase_durability(dev):
                   "the sweep resumed after an escaped transient differs")
 
         # 5. a flipped ledger row: that cell recomputed, the rest restored
-        with np.load(spare) as raw:
+        # reads only which rows the ledger claims solved, to pick the row
+        # the drill then corrupts
+        with np.load(spare) as raw:  # integrity-ok
             cell = int(np.nonzero(raw["leaf_000001"])[0][0])
         corrupt_ledger_row(spare, cell=cell, bit=21)
         t5, launches["corrupt_row"], msgs5, walls["corrupt_row"] = \
@@ -2546,6 +2545,195 @@ def phase_durability(dev):
     return launches
 
 
+# Phase 15: each kernel's __global__ function, as the profiler names it.
+GLOBAL_NAMES = {"egm_policy_grid": "egm_policy_kernel",
+                "stationary_lottery_grid": "stationary_lottery_kernel",
+                "fused_cell_grid": "fused_cell_kernel"}
+LIFECYCLE = ["RUN_START", "BUCKET_LAUNCH", "RUN_END"]
+PROFILE_EVENTS = ("PROFILE_SNAPSHOT", "DEVICE_MEM_HIGH_WATER")
+
+
+def obs_check(ok, what):
+    if not ok:
+        raise AssertionError(f"observability: {what}")
+
+
+def _device_trace_kernels(trace_dir) -> dict:
+    """Kernel events by name in the one torch.profiler trace under
+    ``trace_dir``."""
+    files = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
+    obs_check(len(files) == 1, f"device traces {files}, expected one")
+    with open(os.path.join(trace_dir, files[0])) as f:
+        trace = json.load(f)
+    names: dict = {}
+    for e in trace.get("traceEvents", []):
+        if e.get("cat") == "kernel":
+            names[e["name"]] = names.get(e["name"], 0) + 1
+    return names
+
+
+def phase_obs(dev, sweeps):
+    """Phase 15, the observability layer on the card (float64, the paper's
+    width, 12 cells, the locked schedule).  Per kernel policy (reference,
+    fused): the journaled, traced, profiled sweep with a device trace of
+    its one bucket, its rows bitwise phase 3's (phase 5's) and its
+    launches theirs; its journal the lifecycle (RUN_START, BUCKET_LAUNCH,
+    RUN_END) plus the profile tier's PROFILE_SNAPSHOT and one
+    DEVICE_MEM_HIGH_WATER at or under the card's memory; the cost ledger's
+    snapshot with the card's peaks not assumed; the torch.profiler trace
+    naming the path's __global__ kernels; host syncs (sync debug mode)
+    equal with obs off, journaled and traced (whose journal is exactly
+    the lifecycle), and profiled; obs-off against obs-on walls in turns.
+    Then the quarantine and transient drills, each exactly one typed
+    event.  Returns each run's launches."""
+    import shutil
+    import tempfile
+
+    from aiyagari_hark_tpu_torch.obs import (ObsConfig, build_obs,
+                                             read_journal, trace_nesting_ok)
+    from aiyagari_hark_tpu_torch.parallel.sweep import run_table2_sweep
+    from aiyagari_hark_tpu_torch.utils.config import SweepConfig
+    from aiyagari_hark_tpu_torch.utils.resilience import RetryPolicy
+
+    t_phase = time.perf_counter()
+    total_mem = torch.cuda.get_device_properties(dev).total_memory
+    launches = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+
+    def cfg(name, **kw):
+        d = os.path.join(tmp, name)
+        return ObsConfig(enabled=True, journal_path=f"{d}/events.jsonl",
+                         trace_path=f"{d}/trace.json", **kw), d
+
+    try:
+        for kernel, ref in (("reference", "float64"),
+                            ("fused", "fused_float64")):
+            ref_launches, base = sweeps[ref]
+            config, d = cfg(kernel, profile=True,
+                            device_trace_dir=os.path.join(tmp, kernel,
+                                                          "device"))
+            obs = build_obs(config)
+            res, launches[kernel], _, call_s = _engine_run(
+                dev, SweepConfig(), obs=obs, kernel=kernel)
+            obs.close()
+            obs_check(all(_bits_equal(getattr(res, f), getattr(base, f))
+                          for f in ROWS),
+                      f"the {kernel} sweep's rows differ with obs on")
+            obs_check(launches[kernel] == ref_launches,
+                      f"{kernel} launches {launches[kernel]} against "
+                      f"{ref_launches} with obs off")
+            events = read_journal(config.journal_path)
+            kinds = [e["event"] for e in events]
+            obs_check([k for k in kinds if k not in PROFILE_EVENTS]
+                      == LIFECYCLE and all(kinds.count(k) == 1
+                                           for k in PROFILE_EVENTS),
+                      f"the {kernel} journal {kinds}")
+            hw = next((e for e in events
+                       if e["event"] == "DEVICE_MEM_HIGH_WATER"), {})
+            obs_check(0 < hw.get("bytes", 0) <= hw.get("bytes_limit", 0)
+                      <= total_mem,
+                      f"high water {hw} against {total_mem} bytes")
+            snap = obs.cost_ledger.snapshot()
+            obs_check(snap["launches"] == 1 and snap["cost_sources"] == {
+                "kernel_work_model": 1} and (snap["mfu_pct"] or 0.0) > 0.0
+                and not snap["peak_flops_assumed"]
+                and not snap["peak_bytes_assumed"],
+                f"the {kernel} ledger {snap}")
+            with open(config.trace_path) as f:
+                trace = json.load(f)
+            spans = sorted({e["name"] for e in trace["traceEvents"]
+                            if e["ph"] == "X"})
+            obs_check(trace_nesting_ok(trace) and {
+                "sweep/run", "sweep/bucket", "sweep/phase/polish"}
+                <= set(spans), f"the {kernel} trace's spans {spans}")
+            kernel_events = _device_trace_kernels(
+                config.device_trace_dir)
+            named = {name: sum(n for k, n in kernel_events.items()
+                               if GLOBAL_NAMES[name] in k)
+                     for name in path_kernels(kernel)}
+            obs_check(all(n > 0 for n in named.values()),
+                      f"the {kernel} device trace names {named}; kernel "
+                      f"events {sorted(kernel_events)[:8]}")
+            log("obs_ledger", kernel=kernel, dtype="torch.float64",
+                **{k: v for k, v in snap.items() if k != "entries"},
+                entries=snap["entries"])
+            log("obs", kernel=kernel, bitwise_phase_sweep=True,
+                launches=launches[kernel], journal=kinds,
+                device_mem_high_water=hw, spans=spans,
+                device_trace_kernel_events=named,
+                device_trace_kernel_names=sorted(
+                    k for k in kernel_events
+                    if any(g in k for g in GLOBAL_NAMES.values())),
+                device_trace_all_kernel_events=sum(kernel_events.values()),
+                call_s=call_s, wall_s=res.wall_seconds)
+
+            # host syncs, in turns: obs off, journaled and traced,
+            # profiled, off again (the first run after the device trace
+            # may pay a one-time sync; the claim is on, on, off equal)
+            syncs, journals = {}, {}
+            for mode in ("off_first", "journal_trace", "profile", "off"):
+                obs_arg = None
+                if not mode.startswith("off"):
+                    c, _ = cfg(f"{kernel}_syncs_{mode}",
+                               profile=mode == "profile")
+                    obs_arg, journals[mode] = c, c.journal_path
+                syncs[mode] = _host_syncs(lambda: run_table2_sweep(
+                    dtype=torch.float64, device=dev, kernel=kernel,
+                    obs=obs_arg, **WIDTH))
+            obs_check(syncs["journal_trace"] == syncs["profile"]
+                      == syncs["off"],
+                      f"the {kernel} sweep's host syncs {syncs}")
+            kinds = [e["event"]
+                     for e in read_journal(journals["journal_trace"])]
+            obs_check(kinds == LIFECYCLE, f"the journal {kinds}")
+
+            # walls in turns: off, on, on, off (reported, no limit)
+            on_cfg, _ = cfg(f"{kernel}_walls", profile=True)
+            walls = {"off": [], "on": []}
+            for mode in ("off", "on", "on", "off"):
+                r, _, _, call = _engine_run(
+                    dev, SweepConfig(), kernel=kernel,
+                    obs=on_cfg if mode == "on" else None)
+                walls[mode].append([call, r.wall_seconds])
+            log("obs_cost", kernel=kernel, host_syncs=syncs,
+                host_syncs_by="torch.cuda.set_sync_debug_mode('warn'), "
+                              "counted",
+                walls_call_and_sweep_s=walls,
+                note="turns off, on, on, off; obs on = journal, trace, "
+                     "profile (no device trace)")
+
+        # the drills: exactly one typed event each
+        drills = {
+            "quarantine": (dict(inject_fault={"cell": 2, "at_iter": 1,
+                                              "mode": "nan"}),
+                           "QUARANTINE", {"cell": 2, "recovered": True}),
+            "transient": (dict(inject_transient={"at_call": 0, "times": 1},
+                               retry=RetryPolicy(sleep=lambda s: None)),
+                          "RETRY_TRANSIENT", {"attempt": 1}),
+        }
+        seen = {}
+        for name, (kw, etype, attrs) in drills.items():
+            config, _ = cfg(f"drill_{name}")
+            res, launches[name], _, _ = _engine_run(dev, SweepConfig(),
+                                                    obs=config, **kw)
+            events = read_journal(config.journal_path)
+            typed = [e for e in events if e["event"] not in LIFECYCLE]
+            obs_check(len(typed) == 1 and typed[0]["event"] == etype
+                      and all(typed[0][k] == v for k, v in attrs.items()),
+                      f"the {name} drill journaled {typed}")
+            obs_check(not res.status.any(), f"the {name} drill's statuses "
+                      f"{res.status.tolist()}")
+            seen[name] = typed[0]
+        obs_check(all(_bits_equal(getattr(res, f),
+                                  getattr(sweeps["float64"][1], f))
+                      for f in ROWS), "the transient drill's rows differ")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("obs_drills", events=seen, launches=launches,
+        phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
 def main() -> int:
     global CARD
     if not torch.cuda.is_available():
@@ -2606,6 +2794,7 @@ def main() -> int:
     launches_ext, ext_pairs = phase_extensions(dev)
     launches_pf = phase_portfolio(dev)
     launches_dur = phase_durability(dev)
+    launches_obs = phase_obs(dev, sweeps)
     for name in PATH_KERNELS["fused"]:
         launches[name] = f_launches[name]
         launches32[name] = f_launches32[name]
@@ -2679,6 +2868,11 @@ def main() -> int:
                                    for run, n in launches_pf.items()}
         k["launches_durability"] = {run: n[k["name"]]
                                     for run, n in launches_dur.items()}
+    # phase 15: each kernel's launches per observed run (the journaled,
+    # traced, profiled sweep of each kernel policy; the two drills)
+    for k in kernels:
+        k["launches_obs"] = {run: n[k["name"]]
+                             for run, n in launches_obs.items()}
     kernels[-1]["over_egm_plus_dist"] = fused_over_parts(records)
     print(json.dumps({
         "kernels": kernels,

@@ -21,8 +21,11 @@ impulse response to a 1 % TFP shock decaying at 0.8 (``reproduce.py
 --extras``'s: the nonlinear MIT-shock path of ``models.transition``
 against the linear response of ``models.jacobian``, on the notebook's
 calibration at illustration-size grids), under ``extras.irf`` in
-results.json and as ``Figures/impulse_response.*``; ``reproduce.py
---extras``'s histogram-engine readout is not part of it.
+results.json and as ``Figures/impulse_response.*``, and the
+histogram-engine readout (``reproduce.py --extras``'s: the pinned
+histogram engine's r*, wealth statistics and Lorenz distance, under
+``extras.histogram_engine``; the den Haan side-by-side's solve is
+reused, so the engine is solved once a run).
 
 Usage:
     python reproduce_torch.py                      # the notebook run, card, f64
@@ -114,7 +117,8 @@ def main(argv=None):
                          "boundary with exit code 75")
     ap.add_argument("--extras", action="store_true",
                     help="also the impulse response to a TFP shock "
-                         "(transition path and sequence-space Jacobian)")
+                         "(transition path and sequence-space Jacobian) "
+                         "and the histogram engine's readout")
     args = ap.parse_args(argv)
     if args.scf_csv and not os.path.exists(args.scf_csv):
         ap.error(f"--scf-csv {args.scf_csv!r} does not exist")
@@ -210,12 +214,14 @@ def _run_pipeline(args):
           f"max {float(dh.max_error_pct):.3f} %  "
           f"mean {float(dh.mean_error_pct):.3f} %")
     dh_pin_fields = {}
+    hist_solved = None
     if args.sim_method == "panel" and not args.no_den_haan_pinned:
         with timer.phase("den_haan_pinned"):
             pinned, _ = _economy(args, econ_dict, agent_dict)
             pinned.make_Mrkv_history()
             pinned_sol = pinned.solve(dtype=dtype,
                                       sim_method="distribution")
+        hist_solved = (pinned_sol, pinned)
         dh_pin = den_haan_forecast(pinned_sol,
                                    t_start=econ_dict["T_discard"])
         dh_pin_fields = {
@@ -265,7 +271,10 @@ def _run_pipeline(args):
         irf_paths, irf = _run_irf_extra(args, econ_dict, dtype, dev, timer,
                                         plt, figures_dir)
         figures += irf_paths
-        extras = {"irf": irf}
+        extras = {"irf": irf,
+                  "histogram_engine": _run_histogram_extra(
+                      args, econ_dict, agent_dict, dtype, timer, stats,
+                      solved=hist_solved)}
 
     # -- runtime + structured results (cell 30)
     os.makedirs(out_dir, exist_ok=True)
@@ -307,6 +316,42 @@ def _run_pipeline(args):
     print(f"Total runtime: {total_time:.2f} seconds (results and phase "
           f"breakdown in {out_dir}/)")
     return results
+
+
+def _run_histogram_extra(args, econ_dict, agent_dict, dtype, timer, stats,
+                         solved=None):
+    """The pinned histogram engine's own fixed point on the run's
+    calibration, so results.json reports both simulators' wealth
+    statistics (``reproduce.py --extras``'s ``histogram_engine``).  None
+    when the main run already used the distribution engine.  ``solved``:
+    the den Haan side-by-side's ``(solution, economy)``, reused instead
+    of solving again."""
+    import numpy as np
+
+    if args.sim_method == "distribution":
+        return None
+    if solved is None:
+        with timer.phase("histogram_engine"):
+            economy, _ = _economy(args, econ_dict, agent_dict)
+            economy.make_Mrkv_history()
+            sol = economy.solve(dtype=dtype, sim_method="distribution")
+    else:
+        sol, economy = solved
+    with timer.phase("histogram_stats"):
+        grid = np.asarray(economy.reap_state["aNowGrid"][0])
+        w = np.asarray(economy.reap_state["aNowWeights"][0])
+        ws = stats.wealth_stats(grid, w)
+        out = {
+            "converged": bool(sol.converged),
+            "r_pct": (economy.sow_state["Rnow"] - 1.0) * 100.0,
+            "wealth_stats": {"max": ws.max, "mean": ws.mean,
+                             "std": ws.std, "median": ws.median},
+            "lorenz_distance": stats.lorenz_distance_vs_scf(grid, w),
+        }
+    print(f"Histogram engine (extras): r*={out['r_pct']:.4f}% "
+          f"mean={ws.mean:.3f} std={ws.std:.3f} median={ws.median:.3f} "
+          f"lorenz={out['lorenz_distance']:.4f}")
+    return out
 
 
 def _run_irf_extra(args, econ_dict, dtype, dev, timer, plt, figures_dir):

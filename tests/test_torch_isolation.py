@@ -48,7 +48,8 @@ def test_the_scan_sees_the_whole_port():
     assert "chip_smoke.py" in rel and "reproduce_torch.py" in rel
     assert os.path.join("aiyagari_hark_tpu_torch", "ops", "kernels.py") in rel
     for module in (("models", "portfolio.py"), ("utils", "debug.py"),
-                   ("utils", "resilience.py"), ("verify", "inject.py")):
+                   ("utils", "resilience.py"), ("verify", "inject.py"),
+                   ("obs", "runtime.py"), ("obs", "profile.py")):
         assert os.path.join("aiyagari_hark_tpu_torch", *module) in rel
     assert len(rel) >= 15
 

@@ -13,6 +13,7 @@ residual has a log-slope of order 100, so the 1e-11 intercept gaps of the
 two packages' summation orders move the realized aggregates ~1e-9.
 """
 
+import json
 import os
 import types
 
@@ -236,3 +237,31 @@ def test_reproduce_torch_writes_only_under_its_output_dir(tmp_path,
     assert _snapshot(os.path.join(ROOT, "Figures")) == figs_before
     with open(tmp_path / "out" / "runtime.txt") as f:
         assert "Phase breakdown" in f.read()
+
+
+def test_reproduce_torch_extras_reuse_the_pinned_solve(tmp_path, monkeypatch):
+    """``--quick --extras`` with the den Haan side-by-side on: the
+    histogram-engine readout (``extras.histogram_engine``, as
+    ``reproduce.py --extras`` writes it) reuses the side-by-side's pinned
+    solve (no second solve phase) and reports r*, the wealth statistics
+    and the Lorenz distance through the port's ``utils.stats``.  The
+    impulse response of ``--extras`` is held by
+    ``tests/test_torch_transition.py``; here it is stubbed."""
+    import reproduce_torch
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(reproduce_torch, "_pyplot", lambda: None)
+    monkeypatch.setattr(reproduce_torch, "_run_irf_extra",
+                        lambda *a, **k: ([], None))
+    res = reproduce_torch.main(["--device", "cpu", "--quick", "--extras",
+                                "--output-dir", "out"])
+    hist = res["extras"]["histogram_engine"]
+    assert "den_haan_pinned" in res["phases"]
+    assert "histogram_engine" not in res["phases"]       # reused, not re-run
+    assert hist["converged"] is res["den_haan_pinned_converged"]
+    assert 3.0 < hist["r_pct"] < 5.5
+    assert set(hist["wealth_stats"]) == {"max", "mean", "std", "median"}
+    assert 0.0 < hist["wealth_stats"]["mean"] < hist["wealth_stats"]["max"]
+    assert 0.0 < hist["lorenz_distance"] < 2.0
+    with open(tmp_path / "out" / "results.json") as f:
+        assert json.load(f)["extras"]["histogram_engine"] == hist

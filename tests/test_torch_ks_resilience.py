@@ -157,6 +157,30 @@ def test_matched_pair_resumes_bitwise(tmp_path, full_port):
     assert torch.equal(resumed.final_panel.dist, full_port.final_panel.dist)
 
 
+def test_damaged_policy_sidecar_resumes_cold_with_a_warning(tmp_path,
+                                                            full_port):
+    """One byte flipped in the port-only EGM warm start: the resume warns
+    "approximate" and solves the household from the identity guess, as a
+    JAX pair (which has no such file) resumes; the rule stays within 1e-8
+    of the uninterrupted run."""
+    ck = str(tmp_path / "ks.npz")
+    _port(econ_kw=dict(max_loops=2), checkpoint_path=ck)
+    policy = ck + ".policy.npz"
+    with open(policy, "rb") as f:
+        raw = bytearray(f.read())
+    raw[len(raw) // 2] ^= 0xFF
+    with open(policy, "wb") as f:  # atomic-ok: the test's corruption
+        f.write(bytes(raw))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        resumed = _port(checkpoint_path=ck)
+    msgs = [str(w.message) for w in caught]
+    assert any("unreadable" in m and "approximate" in m for m in msgs), msgs
+    assert [r.iteration for r in resumed.records] == [2]
+    np.testing.assert_allclose(_rule(resumed), _rule(full_port), rtol=0,
+                               atol=1e-8)
+
+
 def _bump_tag(path, delta=7):
     with np.load(path) as data:
         arrays = {k: data[k] for k in data.files}

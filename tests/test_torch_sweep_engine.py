@@ -19,9 +19,11 @@ import numpy as np
 import pytest
 import torch
 
+import aiyagari_hark_tpu.obs as jobs
 import aiyagari_hark_tpu.parallel.sweep as jsw
 import aiyagari_hark_tpu.utils.config as jcfg
 import aiyagari_hark_tpu.utils.fingerprint as jfp
+import aiyagari_hark_tpu_torch.obs as tobs
 import aiyagari_hark_tpu_torch.parallel.sweep as tsw
 import aiyagari_hark_tpu_torch.utils.config as tcfg
 import aiyagari_hark_tpu_torch.utils.fingerprint as tfp
@@ -64,9 +66,13 @@ def test_sweep_config_fields_defaults_and_cells_match_jax():
         # the same fields hash alike
         assert tfp.config_fingerprint(t) == jfp.config_fingerprint(j)
     assert tcfg.SweepConfig().replace(n_buckets=3).n_buckets == 3
-    with pytest.raises(ValueError, match="item 8"):
-        sweep_config_from_fields({**dataclasses.asdict(
-            jcfg.SweepConfig()), "obs": object()})
+    # a JAX ObsConfig's fields carry into the port's ObsConfig
+    jobs_cfg = jobs.ObsConfig(enabled=True, journal_path="j.jsonl",
+                              profile=True, flight_limit=8)
+    carried = sweep_config_from_fields(dataclasses.asdict(
+        jcfg.SweepConfig(obs=jobs_cfg)))
+    assert isinstance(carried.obs, tobs.ObsConfig)
+    assert dataclasses.asdict(carried.obs) == dataclasses.asdict(jobs_cfg)
 
 
 def test_packed_row_layout_and_state_policies_match_jax():
@@ -360,9 +366,7 @@ def test_stall_without_retries_ends_max_iter_nan_masked():
 
 @pytest.mark.parametrize("sweep_kw,call_kw,item", [
     ({}, dict(mesh="auto"), "item 6"),
-    (dict(state_shards=2), {}, "item 6"),
-    (dict(obs=object()), {}, "item 8"),
-    ({}, dict(obs=object()), "item 8")])
+    (dict(state_shards=2), {}, "item 6")])
 def test_unported_knobs_raise_naming_their_roadmap_item(sweep_kw, call_kw,
                                                         item):
     with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):
