@@ -2,7 +2,8 @@
 
 The JAX package ``aiyagari_hark_tpu`` is the reference; this package
 mirrors its layout (``ops``, ``models``, ``parallel``, ``scenarios``,
-``verify``, ``utils``, ``facade``) and keeps its array layouts.  Entry
+``serve``, ``verify``, ``utils``, ``facade``) and keeps its array
+layouts.  Entry
 points run on the CUDA card unless called with ``device="cpu"``.  The two
 inner fixed points of the Table II equilibrium run in hand-written CUDA
 kernels (``ops/csrc``, ``ops/kernels.py``): one kernel each, or both in
@@ -18,7 +19,10 @@ credit crunch) run their path loops in plain PyTorch and their
 stationary solves through the same kernels; so does the two-asset
 portfolio economy (``models.portfolio``), whose push-forward is a
 segmented sum without atomics.  The sweep engine keeps a resume ledger,
-a scheduler sidecar and a transient retry around its launches.
+a scheduler sidecar and a transient retry around its launches.  The
+serving tier (``serve.EquilibriumService``) answers equilibrium queries
+from a content-addressed store, or micro-batches the misses into
+launches of the same lane kernels.
 """
 
 from .facade import (  # noqa: F401

@@ -14,7 +14,9 @@ Dispatch: a wrapper runs its plain version only for tensors on the CPU.
 For CUDA tensors it launches its kernel or raises -- there is no fallback.
 The kernels are compiled from ``csrc/`` by ``nvcc`` for ``sm_90a`` at
 first use, one shared library per source (built in parallel), into
-``_build/`` beside this file, and bound with ``ctypes``.  They are built
+``_build/`` beside this file, and bound with ``ctypes``; the first build
+is serialised under one lock, so threads that use a kernel first at the
+same moment build it once.  They are built
 with contraction on, as PyTorch's own kernels are, so that libdevice's
 ``pow`` rounds as ``torch.pow`` does on the card; every product the
 kernels write is rounded on its own (``csrc/common.cuh``, ``mul``), as
@@ -28,6 +30,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -66,6 +69,8 @@ LAUNCHES = {name: 0 for name in SOURCES}
 
 _LIBS: dict = {}
 BUILD_LOGS: dict = {}
+# Held around the check, the build and the load of ``build_libraries``.
+_BUILD_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
@@ -138,37 +143,52 @@ def build_libraries(names=tuple(SOURCES)) -> float:
     """Compile (one ``nvcc`` per source, all started together) and load
     the named kernels' libraries; a library whose sources and flags are
     unchanged is loaded from ``_build/``.  Returns the seconds taken.
-    Raises ``RuntimeError`` with the compiler's output if a build fails."""
+    Raises ``RuntimeError`` with the compiler's output if a build fails.
+    Each library built or loaded is reported to the active
+    ``utils.timing.CompileCounter`` windows (a build is a cache miss, a
+    load from ``_build/`` a hit)."""
+    from ..utils.timing import note_library
+
     t0 = time.perf_counter()
-    todo = [n for n in names if n not in _LIBS]
-    if not todo:
-        return 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = {}
-    for name in todo:
-        so = BUILD_DIR / f"{name}-{_digest(name)}.so"
-        if so.exists():
-            continue
-        tmp = BUILD_DIR / f".{so.name}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp),
-               str(_CSRC / SOURCES[name])]
-        jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                       stderr=subprocess.STDOUT, text=True),
-                      tmp, so)
-    failed = []
-    for name, (proc, tmp, so) in jobs.items():
-        out, _ = proc.communicate()
-        BUILD_LOGS[name] = out
-        if proc.returncode != 0:
-            failed.append(f"{name} (nvcc exit {proc.returncode}):\n{out}")
-        else:
-            os.replace(tmp, so)
-    if failed:
-        raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
-    for name in todo:
-        lib = ctypes.CDLL(str(BUILD_DIR / f"{name}-{_digest(name)}.so"))
-        _bind(lib, name)
-        _LIBS[name] = lib
+    with _BUILD_LOCK:
+        todo = [n for n in names if n not in _LIBS]
+        if not todo:
+            return 0.0
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        jobs = {}
+        for name in todo:
+            so = BUILD_DIR / f"{name}-{_digest(name)}.so"
+            if so.exists():
+                continue
+            # one name per process and thread: no two writers share a file
+            tmp = BUILD_DIR / (f".{so.name}.{os.getpid()}."
+                               f"{threading.get_ident()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp),
+                   str(_CSRC / SOURCES[name])]
+            jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT,
+                                           text=True), tmp, so)
+        failed = []
+        built = {}
+        for name, (proc, tmp, so) in jobs.items():
+            out, _ = proc.communicate()
+            BUILD_LOGS[name] = out
+            if proc.returncode != 0:
+                failed.append(f"{name} (nvcc exit {proc.returncode}):\n{out}")
+            else:
+                os.replace(tmp, so)
+                built[name] = time.perf_counter() - t0
+        if failed:
+            raise RuntimeError("CUDA kernel build failed: "
+                               + "\n".join(failed))
+        for name in todo:
+            t_load = time.perf_counter()
+            lib = ctypes.CDLL(str(BUILD_DIR / f"{name}-{_digest(name)}.so"))
+            _bind(lib, name)
+            _LIBS[name] = lib
+            note_library(built.get(name, 0.0)
+                         + time.perf_counter() - t_load,
+                         built=name in built)
     return time.perf_counter() - t0
 
 

@@ -7,6 +7,10 @@ elementwise maximum (``combine_status``).
     CONVERGED (0) < STALLED (1) < MAX_ITER (2) < NONFINITE (3)
     < INTERRUPTED (4, process-level: a run stopped on a shutdown request)
 
+and the serving tier's process-level outcomes, which no loop returns:
+DEADLINE_EXCEEDED (5), OVERLOADED (6), LOAD_SHED (7), CIRCUIT_OPEN (8)
+and BACKEND_FAULT (9).
+
 ``classify_fixed_point_exit`` rebuilds a loop's status from its exit
 state ``(diff, iters)``; the CUDA kernels return only that pair, exactly
 as the TPU kernels do.
@@ -29,9 +33,27 @@ NONFINITE = 3
 # boundary on a shutdown request (``utils.resilience.Interrupted``); no
 # numbers were produced, so it sits on the failure side of ``is_failure``.
 INTERRUPTED = 4
+# Process-level serving outcomes (``serve.service``'s typed errors).  No
+# numbers were produced for any of them, so all sit on the failure side
+# of ``is_failure``; they never enter ``combine_status``.
+# DEADLINE_EXCEEDED: a query's deadline expired before its batch launched.
+DEADLINE_EXCEEDED = 5
+# OVERLOADED: admission control rejected the query fail-fast (class
+# budget, unmeetable deadline or a full queue).
+OVERLOADED = 6
+# LOAD_SHED: a queued lower-priority query was displaced by a
+# higher-priority arrival.
+LOAD_SHED = 7
+# CIRCUIT_OPEN: the query's (sigma, rho, sd) region has an open circuit
+# breaker after repeated failures.
+CIRCUIT_OPEN = 8
+# BACKEND_FAULT: a lease-backend or store operation failed or degraded
+# (journaled as ``LEASE_BACKEND_FAULT``).
+BACKEND_FAULT = 9
 
 STATUS_NAMES = ("CONVERGED", "STALLED", "MAX_ITER", "NONFINITE",
-                "INTERRUPTED")
+                "INTERRUPTED", "DEADLINE_EXCEEDED", "OVERLOADED",
+                "LOAD_SHED", "CIRCUIT_OPEN", "BACKEND_FAULT")
 
 # Notes, not status codes (they never enter ``combine_status``): a ladder's
 # cheap phase exited NONFINITE or STALLED and the polish restarted from

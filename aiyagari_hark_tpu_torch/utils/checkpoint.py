@@ -16,9 +16,9 @@ Also here: the disk-fault injection hooks (an injected fault journals
 text, JSON and JSONL writers, the tolerant JSONL reader, the sweep of
 orphaned writer temp files (``gc_orphaned_tmp``), and the sweep
 scheduler's ``SweepSidecar`` (a checksum failure journals
-``INTEGRITY_FAILED``).  Not ported yet: the fleet leases and the writers'
-``durable=True`` fsync mode (the serving tier's write-ahead log is its
-only user; ROADMAP Queue 1 item 8b).
+``INTEGRITY_FAILED``), the writers' ``durable=True`` fsync mode (the
+serving tier's write-ahead log) and the serving tier's lease files
+(``acquire_lease`` and its family).
 """
 
 from __future__ import annotations
@@ -158,10 +158,26 @@ def _to_numpy(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
-def save_pytree(path: str, tree) -> None:
+def _fsync_dir(path: str) -> None:
+    """fsync the directory holding ``path`` so a rename or create itself
+    survives power loss (the second half of a durable write)."""
+    d = os.path.dirname(os.path.abspath(path)) or "."
+    try:
+        fd = os.open(d, os.O_RDONLY)
+    except OSError:
+        return      # a platform that cannot open directories
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+def save_pytree(path: str, tree, durable: bool = False) -> None:
     """Write a pytree of tensors, arrays or scalars to ``path`` (npz,
     atomic rename), its structure string alongside so a load against the
-    wrong template is an error."""
+    wrong template is an error.  ``durable=True`` also fsyncs the bytes
+    and the directory entry: consistent across power loss, not only
+    process death."""
     _maybe_disk_fault("save_pytree", path)
     leaves, r = _flatten(tree)
     arrays = {f"leaf_{i:06d}": _to_numpy(leaf)
@@ -173,7 +189,12 @@ def save_pytree(path: str, tree) -> None:
     try:
         with os.fdopen(fd, "wb") as f:
             np.savez(f, **arrays)
+            if durable:
+                f.flush()
+                os.fsync(f.fileno())
         os.replace(tmp, path)
+        if durable:
+            _fsync_dir(path)
     except BaseException:
         if os.path.exists(tmp):
             os.remove(tmp)
@@ -217,56 +238,155 @@ def load_pytree(path: str, like, strict: bool = True):
 
 # -- atomic text, JSON and JSONL writers --------------------------------------
 
-def _atomic_write_text(path: str, text: str, suffix: str) -> None:
+def _atomic_write_text(path: str, text: str, suffix: str,
+                       durable: bool = False) -> None:
     """tmp + ``os.replace`` in the target's directory: a kill at any point
-    leaves the old file or the new one, never a truncated hybrid."""
+    leaves the old file or the new one, never a truncated hybrid.
+    ``durable=True`` fsyncs the file and the directory."""
     d = os.path.dirname(os.path.abspath(path)) or "."
     os.makedirs(d, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=d, suffix=suffix)
     try:
         with os.fdopen(fd, "w") as f:
             f.write(text)
+            if durable:
+                f.flush()
+                os.fsync(f.fileno())
         os.replace(tmp, path)
+        if durable:
+            _fsync_dir(path)
     except BaseException:
         if os.path.exists(tmp):
             os.remove(tmp)
         raise
 
 
-def atomic_write_text(path: str, text: str) -> None:
+def atomic_write_text(path: str, text: str, durable: bool = False) -> None:
     """Crash-consistent replacement for ``open(path, "w").write(text)``."""
     _maybe_disk_fault("atomic_write_text", path)
-    _atomic_write_text(path, text, suffix=".txt.tmp")
+    _atomic_write_text(path, text, suffix=".txt.tmp", durable=durable)
 
 
 def atomic_write_json(path: str, obj, indent: int = 2,
                       sort_keys: bool = False,
-                      trailing_newline: bool = True) -> None:
+                      trailing_newline: bool = True,
+                      durable: bool = False) -> None:
     """Crash-consistent JSON write (tmp + ``os.replace``)."""
     import json
 
     _maybe_disk_fault("atomic_write_json", path)
     text = json.dumps(obj, indent=indent, sort_keys=sort_keys)
     _atomic_write_text(path, text + ("\n" if trailing_newline else ""),
-                       suffix=".json.tmp")
+                       suffix=".json.tmp", durable=durable)
 
 
-def append_jsonl(path: str, lines) -> None:
+def append_jsonl(path: str, lines, durable: bool = False) -> None:
     """Append complete lines, each with one ``os.write`` to an
     ``O_APPEND`` descriptor: a kill between lines loses nothing, a kill
     mid-write tears at most the final line, and two appenders never
-    interleave bytes within a line."""
+    interleave bytes within a line.  ``durable=True`` fsyncs the
+    descriptor after the batch, and the directory entry when this call
+    created the file, so a write-ahead log's acknowledged records
+    survive power loss."""
     _maybe_disk_fault("append_jsonl", path)
     d = os.path.dirname(os.path.abspath(path)) or "."
     os.makedirs(d, exist_ok=True)
+    created = durable and not os.path.exists(path)
     fd = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_APPEND, 0o644)
     try:
         for line in lines:
             if not line.endswith("\n"):
                 line += "\n"
             os.write(fd, line.encode("utf-8"))
+        if durable:
+            os.fsync(fd)
     finally:
         os.close(fd)
+    if created:
+        _fsync_dir(path)
+
+
+# -- serving leases (DESIGN §14) -----------------------------------------------
+#
+# Exclusive creation elects one solver per fingerprint among processes
+# sharing a store directory: ``os.open(O_CREAT | O_EXCL)`` is atomic on
+# POSIX, so exactly one process wins the create and every other sees
+# ``FileExistsError``.  Losers key off the file's existence; the payload
+# is diagnostic.  Staleness is judged by the file's mtime, the one
+# timestamp a crashed owner cannot fail to have written.
+
+LEASE_SUFFIX = ".lease"
+
+
+def acquire_lease(path: str, owner: str = "") -> bool:
+    """Try to create the lease file at ``path`` exclusively: True iff
+    this caller created it (and now holds the lease), False when it
+    already exists.  Never blocks."""
+    import json
+
+    d = os.path.dirname(os.path.abspath(path)) or "."
+    os.makedirs(d, exist_ok=True)
+    try:
+        fd = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_EXCL, 0o644)
+    except FileExistsError:
+        return False
+    try:
+        os.write(fd, (json.dumps({"owner": str(owner)}) + "\n").encode())
+    finally:
+        os.close(fd)
+    return True
+
+
+def read_lease(path: str):
+    """The lease's owner payload (``{"owner": ...}``), or None when the
+    file is missing; an unreadable or torn payload reads as ``{"owner":
+    None}`` (the lease still exists)."""
+    import json
+
+    try:
+        with open(path, "rb") as f:
+            return json.loads(f.read().decode("utf-8"))
+    except FileNotFoundError:
+        return None
+    except (ValueError, OSError, UnicodeDecodeError):
+        return {"owner": None}
+
+
+def lease_age_s(path: str, now=None):
+    """Seconds since the lease file was written (mtime, on the wall
+    clock ``time.time``, which processes share), or None when it is
+    missing.  Clamped at zero: a wall clock stepped backward reads as
+    fresh, never as a negative age."""
+    import time
+
+    try:
+        mtime = os.path.getmtime(path)
+    except OSError:
+        return None
+    return max(0.0, (time.time() if now is None else float(now)) - mtime)
+
+
+def release_lease(path: str) -> bool:
+    """Remove the lease file; True iff this call removed it (release is
+    idempotent)."""
+    try:
+        os.remove(path)
+        return True
+    except FileNotFoundError:
+        return False
+
+
+def break_stale_lease(path: str, ttl_s: float, now=None,
+                      tolerance_s: float = 0.0) -> bool:
+    """Remove the lease if its age exceeds ``ttl_s + tolerance_s`` (a
+    crashed owner must not wedge its fingerprint); True iff this call
+    removed it.  ``tolerance_s`` absorbs a reclaimer's clock running
+    ahead of the owner's; a clock stepped back is harmless, since
+    ``lease_age_s`` clamps at zero."""
+    age = lease_age_s(path, now=now)
+    if age is None or age <= float(ttl_s) + max(0.0, float(tolerance_s)):
+        return False
+    return release_lease(path)
 
 
 def read_jsonl_tolerant(path: str) -> tuple:

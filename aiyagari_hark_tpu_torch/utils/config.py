@@ -2,7 +2,8 @@
 ``aiyagari_hark_tpu/utils/config.py``; a copy, not an import): the
 Krusell-Smith path's ``AgentConfig`` / ``EconomyConfig`` (reference key
 spelling through ``from_reference_dict``), the precision, grid, kernel
-and state policies, the packed row layout and ``SweepConfig``.
+and state policies, the packed row layout, ``SweepConfig`` and the
+serving tier's ``AdmissionPolicy``.
 
 Precision policy: ``"reference"`` runs every fixed point in the model
 dtype; ``"mixed"`` runs a descent in the cheap dtype (float32 for a
@@ -419,3 +420,77 @@ class SweepConfig:
         """The (crra, rho, sd) cells: sd-major, then crra, then rho."""
         return [(s, r, sd) for sd in self.sd_values()
                 for s in self.crra_values for r in self.rho_values]
+
+
+@dataclass(frozen=True)
+class AdmissionPolicy:
+    """Overload management for the serving engine (DESIGN §11).
+
+    ``EquilibriumService(admission=AdmissionPolicy(...))`` turns
+    saturation into a typed state: fail-fast admission instead of
+    unbounded queueing, priority load shedding, degraded nearest-neighbor
+    answers, and per-region circuit breakers.  ``None`` (the service
+    default) disables the whole layer: behavior, and every served bit,
+    is that of the engine without it.
+
+    Admission (``serve.service.Overloaded``):
+
+    * ``max_work``: total queue-occupancy budget in predicted-work units
+      (``serve.overload.predicted_work``; a baseline sigma=1, rho=0 cell
+      weighs ~1.0).  Weighted occupancy over budget rejects fail-fast
+      with depth and estimated wait (retry-after).
+    * ``class_shares``: nested per-priority-class budgets, indexed by
+      ``serve.Priority`` (INTERACTIVE=0 > BATCH=1 > SPECULATIVE=2):
+      classes >= c together may hold at most
+      ``max_work * class_shares[c]``.
+    * ``shed``: when a class budget rejects an arrival, displace the
+      least important, youngest queued pending instead (its future fails
+      with the typed ``LoadShed``); strictly lower classes only.
+    * ``deadline_aware``: reject at submit any query whose ``deadline``
+      is shorter than the estimated wait (queued batches ahead x recent
+      batch latency).
+    * ``est_batch_s``: a fixed modeled batch latency for the wait
+      estimate; ``None`` uses a measured EWMA.
+    * ``work_unit_s``: modeled seconds of batch wall per predicted-work
+      unit, the EWMA's cold-start seed: before the first flush the first
+      admission-checked submit seeds it with ``weight * work_unit_s``.
+
+    Degraded answers (consumption functions are asymptotically linear,
+    so a near neighbor is a principled brown-out response):
+
+    * ``degraded_pressure``: occupancy fraction past which an opt-in
+      ``degraded_ok`` query is answered from the store's nearest
+      neighbor instead of queueing a cold solve.
+    * ``degraded_distance``: normalized (sigma, rho, sd) distance budget
+      (``parallel.sweep.neighbor_distance`` units) beyond which the
+      degraded path declines.
+    * ``degraded_require_certified``: only donors with a
+      CERTIFIED/MARGINAL certificate may answer.
+
+    Regional circuit breakers (``serve.overload.CircuitBreaker``):
+
+    * ``breaker_failures``: consecutive failures (NONFINITE/MAX_ITER
+      solves, failed certifications) in one region that open its
+      breaker (typed ``CircuitOpen`` fast-fail until a probe succeeds).
+    * ``breaker_cooldown_s``: open -> half-open probe delay in clock
+      units, doubling per reopen up to ``breaker_backoff_cap`` x.
+    * ``breaker_region_scale``: quantization of (sigma, rho, sd) into
+      breaker regions.
+    """
+
+    max_work: float = 64.0
+    class_shares: Tuple[float, ...] = (1.0, 0.5, 0.25)
+    shed: bool = True
+    deadline_aware: bool = True
+    est_batch_s: Optional[float] = None
+    work_unit_s: float = 0.25
+    degraded_pressure: float = 0.7
+    degraded_distance: float = 0.25
+    degraded_require_certified: bool = False
+    breaker_failures: int = 3
+    breaker_cooldown_s: float = 1.0
+    breaker_backoff_cap: int = 8
+    breaker_region_scale: Tuple[float, float, float] = (2.0, 0.3, 0.1)
+
+    def replace(self, **kwargs) -> "AdmissionPolicy":
+        return dataclasses.replace(self, **kwargs)

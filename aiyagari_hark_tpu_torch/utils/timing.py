@@ -4,14 +4,15 @@ that covers work on the card ends with the results on the host (a copy
 or a synchronize), so the host clock sees the device's time.  The FLOP
 accounting's peaks are the card's own (``peak_flops_per_chip``), and
 ``device_trace`` is ``torch.profiler`` where JAX has ``jax.profiler``.
-``CompileCounter`` comes with the serving tier that mirrors it (ROADMAP
-Queue 1 item 8c)."""
+``CompileCounter`` counts what compiles under PyTorch: the CUDA kernels'
+libraries, built by ``nvcc`` or loaded from their build directory."""
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import json
+import threading
 import time
 from collections import defaultdict
 from typing import Dict, Iterable, NamedTuple, Optional
@@ -277,3 +278,73 @@ def device_trace(log_dir: Optional[str]):
     _DEVICE_TRACES[0] += 1
     prof.export_chrome_trace(os.path.join(
         log_dir, f"device_trace_{os.getpid()}_{_DEVICE_TRACES[0]}.json"))
+
+
+# -- kernel library build counting --------------------------------------------
+
+_ACTIVE_COMPILE_COUNTERS: list = []
+_COMPILE_LOCK = threading.Lock()
+
+
+def note_library(seconds: float, built: bool) -> None:
+    """Report one kernel library to every active ``CompileCounter``
+    (``ops.kernels.build_libraries`` calls it once per library it built
+    with ``nvcc`` or loaded from its build directory)."""
+    with _COMPILE_LOCK:
+        for c in _ACTIVE_COMPILE_COUNTERS:
+            c.compile_events += 1
+            c.compile_seconds += float(seconds)
+            if built:
+                c.cache_misses += 1
+            else:
+                c.cache_hits += 1
+
+
+class CompileCounter:
+    """Counts what compiles inside a ``with`` block: the CUDA kernels'
+    shared libraries (``ops.kernels.build_libraries``), the only code the
+    port compiles (the JAX package counts XLA compiles here; the fields
+    and published names are its own).
+
+    * ``compile_events`` / ``compile_seconds``: libraries built or loaded
+      in the window, and their wall.
+    * ``cache_misses``: libraries ``nvcc`` built (the "new compiles"
+      number: a warm relaunch contract is ``cache_misses == 0``).
+    * ``cache_hits``: libraries loaded from the build directory.
+
+    A library already loaded in this process costs nothing and counts
+    nothing, and on the CPU nothing is built, so all stay 0.  Windows
+    may nest or overlap, from any thread: every active counter sees
+    every library."""
+
+    def __init__(self):
+        self.compile_events = 0
+        self.compile_seconds = 0.0
+        self.cache_misses = 0
+        self.cache_hits = 0
+
+    def __enter__(self) -> "CompileCounter":
+        with _COMPILE_LOCK:
+            _ACTIVE_COMPILE_COUNTERS.append(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        with _COMPILE_LOCK:
+            _ACTIVE_COMPILE_COUNTERS.remove(self)
+
+    def publish(self, registry, prefix: str = "aiyagari_xla_") -> None:
+        """Mirror the totals into an ``obs.MetricsRegistry`` as gauges
+        (a window total can be re-published), under the JAX package's
+        names."""
+        if registry is None:
+            return
+        registry.gauge(prefix + "compile_events",
+                       "backend compile requests").set(self.compile_events)
+        registry.gauge(prefix + "compile_seconds",
+                       "backend compile wall").set(self.compile_seconds)
+        registry.gauge(prefix + "cache_misses",
+                       "programs compiled from scratch").set(
+            self.cache_misses)
+        registry.gauge(prefix + "cache_hits",
+                       "compilations served from the persistent "
+                       "cache").set(self.cache_hits)

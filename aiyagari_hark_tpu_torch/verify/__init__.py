@@ -1,8 +1,7 @@
 """Solution integrity (port of ``aiyagari_hark_tpu/verify``): a
 posteriori certification of solved equilibria (``certificate``) and the
 corruption drills (``inject``) of the sweep's SDC recheck, its resume
-ledger and certification.  The solution store's drill waits for the
-store (ROADMAP Queue 1 item 8b)."""
+ledger, certification and the serving tier's solution store."""
 
 from .certificate import (  # noqa: F401
     CERT_CHECKS,
@@ -24,6 +23,7 @@ from .certificate import (  # noqa: F401
 )
 from .inject import (  # noqa: F401
     corrupt_ledger_row,
+    corrupt_store_entry,
     flip_row_bit,
     perturb_row,
     perturbed_policy,

@@ -11,12 +11,14 @@ in a solve calls these; each corrupts exactly one artifact.
 * ``perturbed_policy``: an off-by-one grid shift or small noise on a
   consumption policy, finite and plausible, which only a posteriori
   certification catches.
-
-``corrupt_store_entry`` belongs to the solution store of the serve tier
-(ROADMAP Queue 1 item 8b).
+* ``corrupt_store_entry``: one disk entry of the serving tier's
+  ``SolutionStore`` truncated, zeroed, or its row perturbed under an
+  untouched checksum; the store must evict it and the service re-solve.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -67,6 +69,46 @@ def corrupt_ledger_row(path: str, cell: int, field: int = 0,
         return packed
 
     _rewrite_npz_leaf(path, SweepLedger._fields.index("packed"), mutate)
+
+
+def corrupt_store_entry(disk_path: str, key: int = None,
+                        mode: str = "perturb",
+                        amplitude: float = 1e-3) -> str:
+    """Corrupt one disk-tier ``SolutionStore`` entry; returns its path.
+
+    ``mode="truncate"`` halves the file (an unreadable npz),
+    ``"zero"`` zeroes it, ``"perturb"`` adds ``amplitude`` to the stored
+    row's r* and keeps the file well formed and its checksum field
+    untouched (only the checksum check catches it).  ``key=None``
+    corrupts the lexicographically first entry."""
+    from ..serve.store import StoredSolution
+
+    if key is None:
+        names = sorted(n for n in os.listdir(disk_path)
+                       if n.startswith("sol_") and n.endswith(".npz"))
+        if not names:
+            raise FileNotFoundError(f"no store entries under {disk_path}")
+        path = os.path.join(disk_path, names[0])
+    else:
+        path = os.path.join(
+            disk_path, f"sol_{int(key) & 0xFFFFFFFFFFFFFFFF:016x}.npz")
+    if mode == "truncate":
+        with open(path, "rb") as f:
+            raw = f.read()
+        with open(path, "wb") as f:   # atomic-ok: corruption injector
+            f.write(raw[:max(1, len(raw) // 2)])
+    elif mode == "zero":
+        size = os.path.getsize(path)
+        with open(path, "wb") as f:   # atomic-ok: corruption injector
+            f.write(b"\x00" * size)
+    elif mode == "perturb":
+        _rewrite_npz_leaf(
+            path, StoredSolution._fields.index("packed"),
+            lambda row: perturb_row(row, field=0, amplitude=amplitude))
+    else:
+        raise ValueError(f"corrupt_store_entry mode must be 'truncate', "
+                         f"'zero' or 'perturb', got {mode!r}")
+    return path
 
 
 def perturbed_policy(policy, mode: str = "noise", amplitude: float = 1e-6,

@@ -135,6 +135,20 @@ Phases (each raises on failure, and the script then exits non-zero):
      host syncs equal with obs off, journaled and profiled; walls off
      against on, in turns.  Then a quarantine and a transient drill, each
      journaling exactly one typed event.
+ 16. serving (float64, the paper's width, the reference kernels):
+     EquilibriumService(start_worker=False, max_batch=4, ladder=(1, 2, 4))
+     on the card.  The cold replay of the 12 cells (1e-6 pct of the
+     golden, each lane bitwise a C=1 launch with its seed); a shuffled
+     exact-hit replay (resolved at submit, no launch, no library built,
+     the cold bits, hit p50 under 1 ms); a neighbour replay at rho - 0.05
+     against a cold control (near rate, fewer bisection trips, 0.1 bp);
+     certify_before_cache with a corrupted lane (CertificationFailed, not
+     cached); a NaN lane failing only its future; the threaded worker fed
+     by 4 client threads (the cold bits); a disk store reopened (hits
+     bitwise, a perturbed entry evicted and re-solved); four Huggett cells
+     cold (1e-6 pct of tests/data/torch_families_golden.json), exact and
+     near; two cells under kernel="fused" (0.1 bp).  The walls, the hit
+     p50, the near rate and each run's launches are logged.
 Every phase line carries the card's name and power limit.  The line
 before the last two holds the kernels' JSON record; then the card's name
 and power limit from nvidia-smi; the last line is the result.
@@ -2734,6 +2748,381 @@ def phase_obs(dev, sweeps):
     return launches
 
 
+# Phase 16: serving equilibrium queries through the lane kernels.
+SERVE_CELLS = [(s, r) for s in (1.0, 3.0, 5.0) for r in (0.0, 0.3, 0.6, 0.9)]
+SERVE_HUGGETT = 4            # the first four Huggett golden cells
+SERVE_FUSED = 2              # two cells under kernel="fused"
+SERVE_CLIENTS = 4            # client threads of the threaded drill
+
+
+def serve_check(ok, what):
+    if not ok:
+        raise AssertionError(f"serve: {what}")
+
+
+def _serve_bits(res) -> np.ndarray:
+    return np.asarray(res.values, dtype=np.float64).view(np.uint64)
+
+
+def _serve_wave(launches, run, svc, queries):
+    """Submit ``queries`` and flush, the launch counters set to 0 just
+    before and read just after; returns (results, host wall in s)."""
+    from aiyagari_hark_tpu_torch.ops import kernels as K
+
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    futs = [svc.submit(x) for x in queries]
+    svc.flush()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches[run] = dict(K.LAUNCHES)
+    return futs, wall
+
+
+def _serve_shift(cells):
+    """The neighbour cells: rho - 0.05, and 0.05 for rho = 0."""
+    return [(s, round(r - 0.05, 12) if r > 0.0 else 0.05) for s, r in cells]
+
+
+def _results(futs):
+    return [f.result(0) for f in futs]
+
+
+def _launched(launches, run, kernel="reference"):
+    want = PATH_KERNELS[kernel]
+    n = launches[run]
+    serve_check(all((c > 0) == (k in want) for k, c in n.items()),
+                f"the {run} run launched {n}")
+
+
+def phase_serve(dev, golden):
+    """Phase 16, the serving tier on the card: ``EquilibriumService(
+    start_worker=False, max_batch=4, ladder=(1, 2, 4), device=dev)`` on
+    the 12 Table II cells at the paper's width (float64, the reference
+    kernels).  (a) a cold replay: r* within 1e-6 pct of the golden, all
+    CONVERGED, each lane bitwise a C=1 launch of the same solver and
+    seed; (b) a shuffled exact-hit replay: every future done at submit,
+    no kernel launched and no library built (CompileCounter), the bits of
+    (a), hit p50 under 1 ms; (c) a neighbour replay at rho - 0.05 (rho = 0
+    at 0.05) against a cold control service: the near rate, fewer
+    bisection trips warm than cold, every warm r* within 0.1 bp of the
+    control (a sanity bound, as phase 14's); (d) certify_before_cache:
+    every CONVERGED answer CERTIFIED, a corrupted lane raising
+    CertificationFailed and not cached; (e) a NaN lane failing only its
+    future, its batchmates bitwise (a); (f) the threaded worker fed by 4
+    client threads, the bits of (a); (g) the disk store reopened by a
+    second service: exact hits bitwise, a perturbed entry evicted and
+    re-solved; (h) four Huggett cells cold (1e-6 pct of the golden),
+    exact and near, and two cells under kernel="fused" (0.1 bp).
+    Returns each run's launches."""
+    import shutil
+    import tempfile
+    import threading
+
+    from aiyagari_hark_tpu_torch.ops import kernels as K
+    from aiyagari_hark_tpu_torch.serve import (CertificationFailed,
+                                               EquilibriumService,
+                                               EquilibriumSolveFailed,
+                                               make_query)
+    from aiyagari_hark_tpu_torch.solver_health import (NONFINITE,
+                                                       is_failure,
+                                                       status_name)
+    from aiyagari_hark_tpu_torch.utils.timing import CompileCounter
+    from aiyagari_hark_tpu_torch.verify import (CERTIFIED,
+                                                corrupt_store_entry)
+
+    f64 = torch.float64
+    t_phase = time.perf_counter()
+    sd = golden["labor_sd"]
+
+    def q(s, r, **kw):
+        return make_query(s, r, labor_sd=sd, dtype=f64, **WIDTH, **kw)
+
+    def service(**kw):
+        return EquilibriumService(start_worker=False, max_batch=4,
+                                  ladder=(1, 2, 4), device=dev, **kw)
+
+    g_r = {(c, r): x for c, r, x in zip(golden["crra"], golden["labor_ar"],
+                                        golden["r_star_pct"])}
+    launches, walls, stats = {}, {}, {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    try:
+        # (a) the cold replay, into a disk store that (c) and (g) reopen;
+        # donor_cutoff=0 keeps every lane cold (a later batch of one flush
+        # would otherwise take an earlier batch's roots as donors)
+        store_dir = os.path.join(tmp, "store")
+        svc = service(disk_path=store_dir, donor_cutoff=0.0)
+        futs, walls["cold"] = _serve_wave(
+            launches, "cold", svc, [q(s, r) for s, r in SERVE_CELLS])
+        cold = _results(futs)
+        _launched(launches, "cold")
+        dr = max(abs(100.0 * x.r_star - g_r[c])
+                 for x, c in zip(cold, SERVE_CELLS))
+        serve_check(dr <= 1e-6, f"cold r* {dr} pct from the golden")
+        serve_check(all(x.path == "cold" and x.status == 0 for x in cold),
+                    f"cold paths {[x.path for x in cold]}, statuses "
+                    f"{[status_name(x.status) for x in cold]}")
+        for x, (s, r) in zip(cold, SERVE_CELLS):
+            ref = svc.reference_solve(q(s, r), bracket_init=x.bracket_init)
+            serve_check(np.array_equal(_serve_bits(ref), _serve_bits(x)),
+                        f"cell ({s}, {r}) is not bitwise its C=1 launch")
+        cold_bits = {c: _serve_bits(x) for x, c in zip(cold, SERVE_CELLS)}
+        stats["cold"] = dict(max_abs_dr_pct=dr, bisect_evals=sum(
+            x.bisect_iters for x in cold), inner_steps=sum(
+            x.egm_iters + x.dist_iters for x in cold))
+
+        # (b) the shuffled exact-hit replay
+        order = np.random.default_rng(0).permutation(len(SERVE_CELLS))
+        shuffled = [SERVE_CELLS[int(i)] for i in order]
+        queries = [q(s, r) for s, r in shuffled]
+        torch.cuda.synchronize()
+        K.reset_launches()
+        with CompileCounter() as cc:
+            t0 = time.perf_counter()
+            futs = [svc.submit(x) for x in queries]
+            walls["hit"] = time.perf_counter() - t0
+        launches["hit"] = dict(K.LAUNCHES)
+        serve_check(all(f.done() for f in futs), "a hit did not resolve "
+                    "at submit")
+        hits = _results(futs)
+        serve_check(all(x.path == "hit" for x in hits)
+                    and all(np.array_equal(_serve_bits(x), cold_bits[c])
+                            for x, c in zip(hits, shuffled)),
+                    "the hit replay is not the cold replay's bits")
+        serve_check(sum(launches["hit"].values()) == 0
+                    and cc.compile_events == 0 and cc.cache_misses == 0,
+                    f"the hit replay launched {launches['hit']} and built "
+                    f"{cc.compile_events} libraries")
+        lat = sorted(svc.metrics.latency["hit"].samples)
+        serve_check(len(lat) == len(shuffled), f"{len(lat)} hit latencies")
+        hit_p50_ms = 1e3 * lat[(len(lat) - 1) // 2]
+        serve_check(hit_p50_ms < 1.0, f"hit p50 {hit_p50_ms} ms")
+        stats["hit"] = dict(p50_ms=hit_p50_ms, max_ms=1e3 * lat[-1],
+                            compile_events=cc.compile_events)
+        hit_snap = svc.metrics.snapshot()
+        svc.close()
+
+        # (c) the neighbour replay against a cold control service: a
+        # second service over (a)'s directory, its roots the donors
+        svc = service(disk_path=store_dir)
+        shifted = _serve_shift(SERVE_CELLS)
+        futs, walls["near"] = _serve_wave(
+            launches, "near", svc, [q(s, r) for s, r in shifted])
+        warm = _results(futs)
+        _launched(launches, "near")
+        control = service()
+        futs, walls["control"] = _serve_wave(
+            launches, "control", control, [q(s, r) for s, r in shifted])
+        ctl = _results(futs)
+        control.close()
+        near_rate = [x.path for x in warm].count("near") / len(warm)
+        warm_evals = sum(x.bisect_iters for x in warm)
+        cold_evals = sum(x.bisect_iters for x in ctl)
+        warm_dr = max(abs(100.0 * (a.r_star - b.r_star))
+                      for a, b in zip(warm, ctl))
+        serve_check(near_rate > 0.0 and warm_evals < cold_evals,
+                    f"near rate {near_rate}, warm trips {warm_evals} "
+                    f"against cold {cold_evals}")
+        # the JAX service promises a warm r* only "up to inner-solver
+        # noise"; 0.1 bp (FUSED_BUDGET_PCT) is a sanity bound, as in
+        # phase 14
+        serve_check(not any(is_failure(x.status) for x in warm + ctl)
+                    and warm_dr <= FUSED_BUDGET_PCT,
+                    f"warm r* {warm_dr} pct from the cold control, "
+                    f"statuses {[x.status for x in warm]} (warm), "
+                    f"{[x.status for x in ctl]} (cold)")
+        stats["near"] = dict(
+            near_rate=near_rate, warm_bisect_evals=warm_evals,
+            cold_bisect_evals=cold_evals, max_abs_dr_pct=warm_dr,
+            warm_inner_steps=sum(x.egm_iters + x.dist_iters for x in warm),
+            cold_inner_steps=sum(x.egm_iters + x.dist_iters for x in ctl))
+        svc.close()
+
+        # (d) certify before caching, the first lane corrupted
+        cert = service(certify_before_cache=True,
+                       inject_corrupt_lane={"at_launch": 0, "lane": 0,
+                                            "field": 0, "amplitude": 3e-3})
+        futs, walls["certify"] = _serve_wave(
+            launches, "certify", cert, [q(s, r) for s, r in SERVE_CELLS[:4]])
+        _launched(launches, "certify")
+        try:
+            futs[0].result(0)
+            raise AssertionError("serve: the corrupted lane certified")
+        except CertificationFailed as e:
+            serve_check(e.certificate.failed
+                        and cert.store.get(e.key) is None,
+                        "the corrupted lane was cached")
+        levels = [f.result(0).cert_level for f in futs[1:]]
+        again = cert.submit(q(*SERVE_CELLS[0]))
+        cert.flush()
+        levels.append(again.result(0).cert_level)
+        serve_check(all(c == CERTIFIED for c in levels),
+                    f"cert levels {levels}")
+        stats["certify"] = dict(levels=levels, failed=cert.metrics.snapshot(
+            )["serve_failed_certificates"])
+        cert.close()
+
+        # (e) the NaN drill: one lane poisoned from its first trip
+        nan = service(inject_fault_mode="nan")
+        mates = SERVE_CELLS[:4]
+        futs, walls["nan"] = _serve_wave(launches, "nan", nan, [
+            q(s, r, fault_iter=0 if i == 1 else None)
+            for i, (s, r) in enumerate(mates)])
+        _launched(launches, "nan")
+        try:
+            futs[1].result(0)
+            raise AssertionError("serve: the NaN lane did not fail")
+        except EquilibriumSolveFailed as e:
+            serve_check(e.status == NONFINITE and is_failure(e.status),
+                        f"the NaN lane's status {e.status}")
+        serve_check(nan.store.get(q(*mates[1]).key()) is None,
+                    "the NaN lane was cached")
+        for i in (0, 2, 3):
+            serve_check(np.array_equal(_serve_bits(futs[i].result(0)),
+                                       cold_bits[mates[i]]),
+                        f"NaN batchmate {mates[i]} moved")
+        nan.close()
+
+        # (f) the threaded worker, fed by 4 client threads
+        # donor_cutoff=0: every lane cold, whatever the batches the
+        # worker happens to form, so each answer is (a)'s bits
+        worker = EquilibriumService(start_worker=True, max_batch=4,
+                                    max_wait_s=0.005, ladder=(1, 2, 4),
+                                    donor_cutoff=0.0, device=dev)
+        got = {}
+
+        def client(k):
+            for s, r in SERVE_CELLS[k::SERVE_CLIENTS]:
+                got[(s, r)] = worker.submit(q(s, r)).result(600)
+
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(SERVE_CLIENTS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(600)
+        torch.cuda.synchronize()
+        walls["threaded"] = time.perf_counter() - t0
+        launches["threaded"] = dict(K.LAUNCHES)
+        batches = worker.metrics.snapshot()["serve_batches"]
+        worker.close()
+        _launched(launches, "threaded")
+        serve_check(len(got) == len(SERVE_CELLS) and all(
+            np.array_equal(_serve_bits(got[c]), cold_bits[c])
+            for c in SERVE_CELLS), "the threaded worker's bits")
+        stats["threaded"] = dict(batches=batches, clients=SERVE_CLIENTS)
+
+        # (g) the disk store reopened; one entry perturbed on disk
+        reopened = service(disk_path=store_dir)
+        futs, walls["disk_hit"] = _serve_wave(
+            launches, "disk_hit", reopened, [q(s, r) for s, r in
+                                             SERVE_CELLS])
+        serve_check(all(f.result(0).path == "hit" and np.array_equal(
+            _serve_bits(f.result(0)), cold_bits[c])
+            for f, c in zip(futs, SERVE_CELLS))
+            and sum(launches["disk_hit"].values()) == 0,
+            "the reopened store's hits")
+        reopened.close()
+        victim = SERVE_CELLS[5]
+        corrupt_store_entry(store_dir, key=q(*victim).key(), mode="perturb")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            third = service(disk_path=store_dir)
+            futs, walls["disk_resolve"] = _serve_wave(
+                launches, "disk_resolve", third, [q(*victim)])
+        redo = futs[0].result(0)
+        evicted = third.metrics.snapshot()["store_corrupt_evictions"]
+        third.close()
+        _launched(launches, "disk_resolve")
+        serve_check(evicted == 1 and redo.path in ("cold", "near")
+                    and redo.status == 0 and abs(100.0 * redo.r_star
+                                                 - g_r[victim])
+                    <= FUSED_BUDGET_PCT,
+                    f"the perturbed entry: {evicted} evicted, re-solved "
+                    f"{redo.path} at {100.0 * redo.r_star} pct")
+        stats["disk"] = dict(evicted=evicted, resolve_path=redo.path)
+
+        # (h) Huggett: cold, exact and near; then kernel="fused"
+        with open(FAMILIES) as f:
+            fam = json.load(f)
+        hg = fam["huggett"]
+        h_cells = list(zip(hg["crra"], hg["labor_ar"]))[:SERVE_HUGGETT]
+        hsvc = service()
+
+        def hq(s, r):
+            return q(s, r, scenario="huggett",
+                     borrow_limit=hg["borrow_limit"])
+
+        futs, walls["huggett_cold"] = _serve_wave(
+            launches, "huggett_cold", hsvc, [hq(s, r) for s, r in h_cells])
+        hcold = _results(futs)
+        _launched(launches, "huggett_cold")
+        hdr = max(abs(100.0 * x.r_star - g) for x, g in
+                  zip(hcold, hg["r_star_pct"]))
+        serve_check(hdr <= 1e-6 and all(
+            x.path == "cold" and x.status == 0 for x in hcold),
+            f"Huggett cold r* {hdr} pct from the golden, paths "
+            f"{[x.path for x in hcold]}")
+        hits = [hsvc.submit(hq(s, r)) for s, r in h_cells]
+        serve_check(all(f.done() and f.result(0).path == "hit"
+                        and f.result(0).values == x.values
+                        for f, x in zip(hits, hcold)), "Huggett hits")
+        h_shift = _serve_shift(h_cells)
+        futs, walls["huggett_near"] = _serve_wave(
+            launches, "huggett_near", hsvc, [hq(s, r) for s, r in h_shift])
+        hnear = _results(futs)
+        hctl_svc = service()
+        futs, _ = _serve_wave(launches, "huggett_control", hctl_svc,
+                              [hq(s, r) for s, r in h_shift])
+        hctl = _results(futs)
+        hctl_svc.close()
+        hsvc.close()
+        h_near_dr = max(abs(100.0 * (a.r_star - b.r_star))
+                        for a, b in zip(hnear, hctl))
+        serve_check("near" in [x.path for x in hnear]
+                    and not any(is_failure(x.status) for x in hnear)
+                    and h_near_dr <= FUSED_BUDGET_PCT,
+                    f"Huggett near paths {[x.path for x in hnear]}, "
+                    f"{h_near_dr} pct from the control")
+        stats["huggett"] = dict(
+            max_abs_dr_pct=hdr, near_paths=[x.path for x in hnear],
+            near_max_abs_dr_pct=h_near_dr,
+            warm_bisect_evals=sum(x.bisect_iters for x in hnear),
+            cold_bisect_evals=sum(x.bisect_iters for x in hctl))
+
+        fsvc = service()
+        f_cells = SERVE_CELLS[:SERVE_FUSED]
+        futs, walls["fused"] = _serve_wave(
+            launches, "fused", fsvc, [q(s, r, kernel="fused")
+                                      for s, r in f_cells])
+        fres = _results(futs)
+        fsvc.close()
+        _launched(launches, "fused", "fused")
+        fdr = max(abs(100.0 * x.r_star - g_r[c])
+                  for x, c in zip(fres, f_cells))
+        serve_check(fdr <= FUSED_BUDGET_PCT and all(x.status == 0
+                                                    for x in fres),
+                    f"fused r* {fdr} pct from the golden")
+        stats["fused"] = dict(max_abs_dr_pct=fdr)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    per_replay = {run: sum(n.values()) for run, n in launches.items()}
+    log("serve", cells=len(SERVE_CELLS), width=WIDTH, dtype="float64",
+        max_batch=4, ladder=[1, 2, 4], walls_s=walls, stats=stats,
+        hit_p50_ms=stats["hit"]["p50_ms"], near_rate=near_rate,
+        launches=launches, launches_per_replay=per_replay,
+        serve_snapshot={k: hit_snap[k] for k in (
+            "serve_requests", "serve_hit_rate", "serve_near_rate",
+            "serve_batches", "serve_batch_occupancy", "serve_hit_p50_ms",
+            "serve_p50_ms", "serve_compiles")},
+        phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
 def main() -> int:
     global CARD
     if not torch.cuda.is_available():
@@ -2795,6 +3184,7 @@ def main() -> int:
     launches_pf = phase_portfolio(dev)
     launches_dur = phase_durability(dev)
     launches_obs = phase_obs(dev, sweeps)
+    launches_serve = phase_serve(dev, golden)
     for name in PATH_KERNELS["fused"]:
         launches[name] = f_launches[name]
         launches32[name] = f_launches32[name]
@@ -2873,6 +3263,12 @@ def main() -> int:
     for k in kernels:
         k["launches_obs"] = {run: n[k["name"]]
                              for run, n in launches_obs.items()}
+    # phase 16: each kernel's launches per serve run (a cold or near flush
+    # of the reference kernels; the fused kernel under kernel="fused"; an
+    # exact hit launches nothing)
+    for k in kernels:
+        k["launches_serve"] = {run: n[k["name"]]
+                               for run, n in launches_serve.items()}
     kernels[-1]["over_egm_plus_dist"] = fused_over_parts(records)
     print(json.dumps({
         "kernels": kernels,

@@ -49,7 +49,9 @@ def test_the_scan_sees_the_whole_port():
     assert os.path.join("aiyagari_hark_tpu_torch", "ops", "kernels.py") in rel
     for module in (("models", "portfolio.py"), ("utils", "debug.py"),
                    ("utils", "resilience.py"), ("verify", "inject.py"),
-                   ("obs", "runtime.py"), ("obs", "profile.py")):
+                   ("obs", "runtime.py"), ("obs", "profile.py"),
+                   ("serve", "service.py"), ("serve", "store.py"),
+                   ("serve", "lease.py"), ("serve", "wal.py")):
         assert os.path.join("aiyagari_hark_tpu_torch", *module) in rel
     assert len(rel) >= 15
 

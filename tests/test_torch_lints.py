@@ -77,7 +77,8 @@ def test_the_obs_lint_sees_every_journaled_seam():
                    "utils/checkpoint.py", "parallel/sweep.py",
                    "models/ks_solver.py", "facade.py",
                    "verify/certificate.py", "obs/runtime.py",
-                   "obs/profile.py", "obs/regress.py"):
+                   "obs/profile.py", "obs/regress.py",
+                   "serve/service.py", "serve/store.py", "serve/wal.py"):
         assert f"{PORT_PKG}/{module}" in rels, module
     assert {"chip_smoke.py", "reproduce_torch.py"} <= rels
 
