@@ -160,9 +160,7 @@ def build_libraries(names=tuple(SOURCES)) -> float:
             so = BUILD_DIR / f"{name}-{_digest(name)}.so"
             if so.exists():
                 continue
-            # one name per process and thread: no two writers share a file
-            tmp = BUILD_DIR / (f".{so.name}.{os.getpid()}."
-                               f"{threading.get_ident()}.tmp")
+            tmp = BUILD_DIR / f".{so.name}.{os.getpid()}.tmp"
             cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp),
                    str(_CSRC / SOURCES[name])]
             jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,

@@ -682,64 +682,3 @@ def make_backend(spec: str, root: Optional[str] = None,
         f"unknown lease backend {spec!r} (expected 'dir', 'memory', "
         "'cas:<host>:<port>', or 'replicated:<h>:<p>,<h>:<p>,...')")
 
-
-# -- replica process entry point ----------------------------------
-
-
-def replica_main(argv=None) -> int:
-    """Run one CAS replica as a standalone process:
-
-        python -m aiyagari_hark_tpu_torch.serve.lease \\
-            --port 0 --data-dir /path/to/replica0 --journal j.jsonl
-
-    Prints ``CAS_READY port=<p> pid=<pid>`` once serving (the spawn
-    harness parses it), recovers the version map from WAL+snapshot when
-    ``--data-dir`` holds a prior life's state, and exits 0 on
-    SIGTERM/SIGINT.  SIGKILL is the drill case: the WAL is the
-    contract."""
-    import argparse
-    import signal
-    import sys
-
-    p = argparse.ArgumentParser(prog="aiyagari-cas-replica")
-    p.add_argument("--host", default="127.0.0.1")
-    p.add_argument("--port", type=int, default=0)
-    p.add_argument("--data-dir", default=None,
-                   help="WAL+snapshot directory (durable mode)")
-    p.add_argument("--journal", default=None,
-                   help="append lifecycle events (WAL_REPLAY, "
-                        "SNAPSHOT_COMPACT, DISK_FAULT) to this JSONL")
-    p.add_argument("--snapshot-every", type=int, default=256)
-    p.add_argument("--skew-tolerance-s", type=float, default=0.0)
-    args = p.parse_args(argv)
-
-    obs = None
-    if args.journal is not None:
-        from ..obs.runtime import ObsConfig, build_obs
-
-        obs = build_obs(ObsConfig(enabled=True,
-                                  journal_path=args.journal))
-    srv = CASServer(host=args.host, port=args.port,
-                    skew_tolerance_s=args.skew_tolerance_s,
-                    data_dir=args.data_dir,
-                    snapshot_every=args.snapshot_every, obs=obs)
-    stop = threading.Event()
-    signal.signal(signal.SIGTERM, lambda *_: stop.set())
-    signal.signal(signal.SIGINT, lambda *_: stop.set())
-    srv.start()
-    print(f"CAS_READY port={srv.port} pid={os.getpid()}", flush=True)
-    sys.stdout.flush()
-    try:
-        while not stop.is_set():
-            stop.wait(0.2)
-    finally:
-        srv.stop()
-        if obs is not None:
-            obs.close()
-    return 0
-
-
-if __name__ == "__main__":   # pragma: no cover - subprocess entry
-    import sys
-
-    sys.exit(replica_main())

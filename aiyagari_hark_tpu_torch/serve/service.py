@@ -481,14 +481,14 @@ class EquilibriumService:
 
     ``device``: where every launch runs (``device.resolve_device``:
     ``None`` is the card, and raises without one unless ``"cpu"`` is
-    asked for).  The worker thread launches on this device, whatever
-    device is current in that thread.
+    asked for).  A CUDA device without an index is pinned here to the
+    device current in the constructing thread, so the worker thread
+    launches on that card, whatever device is current in its own thread.
 
     Not ported (the JAX service's multi-chip serving): a ``mesh`` other
     than ``None`` and ``state_shards > 1`` raise ``NotImplementedError``
     (ROADMAP Queue 1 item 6) before the constructor takes any resource;
-    ``mesh_axis`` is kept for the JAX signature and names nothing until
-    then."""
+    JAX's ``mesh_axis`` lands with them."""
 
     def __init__(self, store: Optional[SolutionStore] = None,
                  capacity: int = 256, disk_path: Optional[str] = None,
@@ -504,8 +504,7 @@ class EquilibriumService:
                  cert_thresholds=None,
                  inject_corrupt_lane: Optional[dict] = None,
                  obs=None, admission=None,
-                 mesh=None, mesh_axis: str = "cells",
-                 state_shards: int = 1,
+                 mesh=None, state_shards: int = 1,
                  prefetch_k: int = 0, prefetch_cells=None,
                  fleet_poll_s: float = 0.005,
                  surrogate=None, device=None):
@@ -523,6 +522,9 @@ class EquilibriumService:
                 "state-axis sharding is not ported yet (ROADMAP Queue 1 "
                 "item 6); serve with state_shards=1")
         self._device = resolve_device(device)
+        if self._device.type == "cuda" and self._device.index is None:
+            self._device = torch.device("cuda",
+                                        torch.cuda.current_device())
         # Observability (DESIGN §10): an ObsConfig builds a
         # bundle owned (and closed) by this service; a shared Obs
         # correlates serving with a caller's wider run.  The store

@@ -16,8 +16,8 @@ Also here: the disk-fault injection hooks (an injected fault journals
 text, JSON and JSONL writers, the tolerant JSONL reader, the sweep of
 orphaned writer temp files (``gc_orphaned_tmp``), and the sweep
 scheduler's ``SweepSidecar`` (a checksum failure journals
-``INTEGRITY_FAILED``), the writers' ``durable=True`` fsync mode (the
-serving tier's write-ahead log) and the serving tier's lease files
+``INTEGRITY_FAILED``), the text, JSON and JSONL writers' ``durable=True``
+fsync mode (the serving tier's write-ahead log) and the serving tier's lease files
 (``acquire_lease`` and its family).
 """
 
@@ -172,12 +172,10 @@ def _fsync_dir(path: str) -> None:
         os.close(fd)
 
 
-def save_pytree(path: str, tree, durable: bool = False) -> None:
+def save_pytree(path: str, tree) -> None:
     """Write a pytree of tensors, arrays or scalars to ``path`` (npz,
     atomic rename), its structure string alongside so a load against the
-    wrong template is an error.  ``durable=True`` also fsyncs the bytes
-    and the directory entry: consistent across power loss, not only
-    process death."""
+    wrong template is an error."""
     _maybe_disk_fault("save_pytree", path)
     leaves, r = _flatten(tree)
     arrays = {f"leaf_{i:06d}": _to_numpy(leaf)
@@ -189,12 +187,7 @@ def save_pytree(path: str, tree, durable: bool = False) -> None:
     try:
         with os.fdopen(fd, "wb") as f:
             np.savez(f, **arrays)
-            if durable:
-                f.flush()
-                os.fsync(f.fileno())
         os.replace(tmp, path)
-        if durable:
-            _fsync_dir(path)
     except BaseException:
         if os.path.exists(tmp):
             os.remove(tmp)

@@ -396,3 +396,23 @@ def test_service_defaults_to_the_card(monkeypatch):
     svc = tserve.EquilibriumService(start_worker=False, device="cpu")
     assert svc._device == torch.device("cpu")
     svc.close()
+
+
+def test_worker_thread_launches_on_the_constructing_threads_card(monkeypatch):
+    """``device=None`` pins the card current where the service is built:
+    a worker thread whose own current card differs still launches there."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 1)
+    svc = tserve.EquilibriumService(start_worker=False)
+    assert svc._device == torch.device("cuda", 1)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    seen = []
+    th = threading.Thread(target=lambda: seen.append(svc._device_scope()))
+    th.start()
+    th.join(10)
+    assert isinstance(seen[0], torch.cuda.device) and seen[0].idx == 1
+    explicit = tserve.EquilibriumService(start_worker=False,
+                                         device="cuda:0")
+    assert explicit._device == torch.device("cuda", 0)
+    svc.close()
+    explicit.close()
