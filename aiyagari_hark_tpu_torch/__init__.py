@@ -22,7 +22,8 @@ segmented sum without atomics.  The sweep engine keeps a resume ledger,
 a scheduler sidecar and a transient retry around its launches.  The
 serving tier (``serve.EquilibriumService``) answers equilibrium queries
 from a content-addressed store, or micro-batches the misses into
-launches of the same lane kernels.
+launches of the same lane kernels; the fleet (``serve.fleet``) runs such
+services as worker processes behind HTTP over one shared store.
 """
 
 from .facade import (  # noqa: F401

@@ -26,6 +26,7 @@ the plain versions' separate elementwise operations round it.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -69,8 +70,12 @@ LAUNCHES = {name: 0 for name in SOURCES}
 
 _LIBS: dict = {}
 BUILD_LOGS: dict = {}
-# Held around the check, the build and the load of ``build_libraries``.
+# Held around the check, the build and the load of ``build_libraries``:
+# the thread lock within a process, and an ``fcntl.flock`` on
+# ``BUILD_DIR / LOCK_NAME`` across processes (fleet workers started
+# together build each library once).
 _BUILD_LOCK = threading.Lock()
+LOCK_NAME = ".build.lock"
 
 
 def reset_launches() -> None:
@@ -146,48 +151,57 @@ def build_libraries(names=tuple(SOURCES)) -> float:
     Raises ``RuntimeError`` with the compiler's output if a build fails.
     Each library built or loaded is reported to the active
     ``utils.timing.CompileCounter`` windows (a build is a cache miss, a
-    load from ``_build/`` a hit)."""
-    from ..utils.timing import note_library
-
+    load from ``_build/`` a hit).  Threads of a process and processes
+    sharing ``BUILD_DIR`` take turns over the check, the build and the
+    load, so a library is built once however many start together."""
     t0 = time.perf_counter()
     with _BUILD_LOCK:
         todo = [n for n in names if n not in _LIBS]
         if not todo:
             return 0.0
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        jobs = {}
-        for name in todo:
-            so = BUILD_DIR / f"{name}-{_digest(name)}.so"
-            if so.exists():
-                continue
-            tmp = BUILD_DIR / f".{so.name}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp),
-                   str(_CSRC / SOURCES[name])]
-            jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                           stderr=subprocess.STDOUT,
-                                           text=True), tmp, so)
-        failed = []
-        built = {}
-        for name, (proc, tmp, so) in jobs.items():
-            out, _ = proc.communicate()
-            BUILD_LOGS[name] = out
-            if proc.returncode != 0:
-                failed.append(f"{name} (nvcc exit {proc.returncode}):\n{out}")
-            else:
-                os.replace(tmp, so)
-                built[name] = time.perf_counter() - t0
-        if failed:
-            raise RuntimeError("CUDA kernel build failed: "
-                               + "\n".join(failed))
-        for name in todo:
-            t_load = time.perf_counter()
-            lib = ctypes.CDLL(str(BUILD_DIR / f"{name}-{_digest(name)}.so"))
-            _bind(lib, name)
-            _LIBS[name] = lib
-            note_library(built.get(name, 0.0)
-                         + time.perf_counter() - t_load,
-                         built=name in built)
+        with open(BUILD_DIR / LOCK_NAME, "a") as lock:  # atomic-ok: a lock file, never written
+            fcntl.flock(lock, fcntl.LOCK_EX)     # released by the close
+            _build_and_load(todo, t0)
     return time.perf_counter() - t0
+
+
+def _build_and_load(todo, t0: float) -> None:
+    """``build_libraries``' body, under both of its locks."""
+    from ..utils.timing import note_library
+
+    jobs = {}
+    for name in todo:
+        so = BUILD_DIR / f"{name}-{_digest(name)}.so"
+        if so.exists():
+            continue
+        tmp = BUILD_DIR / f".{so.name}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp),
+               str(_CSRC / SOURCES[name])]
+        jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT,
+                                       text=True), tmp, so)
+    failed = []
+    built = {}
+    for name, (proc, tmp, so) in jobs.items():
+        out, _ = proc.communicate()
+        BUILD_LOGS[name] = out
+        if proc.returncode != 0:
+            failed.append(f"{name} (nvcc exit {proc.returncode}):\n{out}")
+        else:
+            os.replace(tmp, so)
+            built[name] = time.perf_counter() - t0
+    if failed:
+        raise RuntimeError("CUDA kernel build failed: "
+                           + "\n".join(failed))
+    for name in todo:
+        t_load = time.perf_counter()
+        lib = ctypes.CDLL(str(BUILD_DIR / f"{name}-{_digest(name)}.so"))
+        _bind(lib, name)
+        _LIBS[name] = lib
+        note_library(built.get(name, 0.0)
+                     + time.perf_counter() - t_load,
+                     built=name in built)
 
 
 def _library(name: str):

@@ -10,10 +10,13 @@ mechanism, cold misses micro-batched onto a fixed ladder of launch
 shapes through the sweep's batched cell solver, so on the card every
 cold or near flush runs the hand-written lane kernels.
 
-Not ported yet (ROADMAP Queue 1 item 8d): the fleet front and workers,
-the replicated quorum backend, the chaos drills and the load harness
-(``serve.{fleet,replicated,chaos,loadgen}``).  A multi-device ``mesh``
-and ``state_shards > 1`` raise ``NotImplementedError`` (item 6).
+The fleet tier runs N worker processes (``serve.fleet``: an HTTP front
+over one service each, ``--device`` the card by default) over one shared
+disk store, coordinated by shared-directory, loopback-CAS or replicated
+quorum leases (``serve.replicated``), driven by the load harness
+(``serve.loadgen``) and the chaos and disaster-recovery drills
+(``serve.chaos``).  A multi-device ``mesh`` and ``state_shards > 1``
+raise ``NotImplementedError`` (ROADMAP Queue 1 item 6).
 """
 
 from .batcher import (  # noqa: F401
@@ -26,6 +29,22 @@ from .cellindex import (  # noqa: F401
     CellIndex,
     linear_nearest_k,
 )
+from .chaos import (  # noqa: F401
+    ChaosAgent,
+    ChaosPlan,
+    DrillError,
+    run_drills,
+)
+from .fleet import (  # noqa: F401
+    FleetClient,
+    FleetFront,
+    FleetHTTPError,
+    HedgePolicy,
+    RetryPolicy,
+    error_to_json,
+    result_to_json,
+    worker_main,
+)
 from .lease import (  # noqa: F401
     CASServer,
     LeaseBackend,
@@ -33,6 +52,19 @@ from .lease import (  # noqa: F401
     MemoryCASBackend,
     SharedDirBackend,
     make_backend,
+)
+from .loadgen import (  # noqa: F401
+    Arrival,
+    FleetCtl,
+    FleetReport,
+    FleetSpec,
+    LoadReport,
+    LoadSpec,
+    ManualClock,
+    generate_arrivals,
+    generate_fleet_arrivals,
+    run_fleet_load,
+    run_load,
 )
 from .metrics import ServeMetrics  # noqa: F401
 from .overload import (  # noqa: F401

@@ -266,6 +266,10 @@ class SolutionStore:
         self._hb_beats = 0       # completed refresh rounds
         self._hb_lost = 0        # held leases found released/stolen
         self._closed = False
+        # chaos seams: an armable ``serve.chaos.ChaosAgent``
+        # consulted at publish / heartbeat / disk-read / staleness
+        # seams; None (the default) costs one attribute check
+        self._chaos = None
         # normalized-distance radius beyond which nominate() declines: a
         # donor across the whole lattice proposes a junk target (safe —
         # in-program verification falls back to cold — but an honest
@@ -533,6 +537,15 @@ class SolutionStore:
                         and os.path.exists(self._file(key))):
                     return None
             path = self._file(key)
+            if self._chaos is not None and self._chaos.read_fault(key):
+                # injected store partition: a TRANSIENT read
+                # failure degrades to a miss WITHOUT evicting — the
+                # bytes on disk are healthy, and deleting them would
+                # turn a partition window into a permanent cache loss
+                self._backend_fault(
+                    "disk_read", "injected partition read fault",
+                    key=key)
+                return None
             try:
                 sol = load_pytree(path, _template())
             except CORRUPT_NPZ_ERRORS as e:
@@ -638,6 +651,17 @@ class SolutionStore:
             "LEASE_BACKEND_FAULT", op=str(op), owner=self.owner,
             key=None if key is None else int(key), detail=str(detail))
 
+    def _chaos_now(self):
+        """The staleness clock's ``now`` override: None normally; a
+        chaos-armed skew returns a shifted wall (the duplicated-
+        election drill's injected fault)."""
+        return None if self._chaos is None else self._chaos.skew_now()
+
+    def set_chaos(self, agent) -> None:
+        """Attach a ``serve.chaos.ChaosAgent`` (fault-injection drills;
+        ``--chaos`` workers only).  None detaches."""
+        self._chaos = agent
+
     def claim(self, key: int) -> str:
         """Elect a solver for ``key`` fleet-wide.  Returns:
 
@@ -673,7 +697,7 @@ class SolutionStore:
                     return "published"
                 return "won"
             if self._backend_call("break_stale", False, key,
-                                  self.lease_ttl_s):
+                                  self.lease_ttl_s, now=self._chaos_now()):
                 with self._lock:
                     self._fleet["fleet_lease_reclaims"] += 1
                 self._obs_scope().event("FLEET_LEASE_RECLAIM", key=key,
@@ -697,6 +721,14 @@ class SolutionStore:
         ever saw (prefetch, a drilled worker's in-flight reply)."""
         self._require_shared("publish")
         key = int(sol.key)
+        if self._chaos is not None:
+            # chaos seam: an armed publish delay holds the lease
+            # mid-"solve" — the kill/stall drills' deterministic window
+            delay = self._chaos.publish_delay_s(sol.cell)
+            if delay > 0.0:
+                import time
+
+                time.sleep(delay)
         self.put(sol)
         with self._lock:
             self._fleet["fleet_publishes"] += 1
@@ -751,6 +783,9 @@ class SolutionStore:
                     self._hb_thread = None
                     return
                 held = list(self._held)
+            chaos = self._chaos
+            if chaos is not None and chaos.heartbeat_stalled():
+                continue     # the zombie-winner drill: alive, not beating
             lost = []
             for key in held:
                 # default True: a TRANSIENT backend fault must not drop
@@ -852,7 +887,7 @@ class SolutionStore:
         self._require_shared("reclaim_if_stale")
         key = int(key)
         if self._backend_call("break_stale", False, key,
-                              self.lease_ttl_s):
+                              self.lease_ttl_s, now=self._chaos_now()):
             with self._lock:
                 self._fleet["fleet_lease_reclaims"] += 1
             self._obs_scope().event("FLEET_LEASE_RECLAIM", key=key,

@@ -26,10 +26,15 @@ makes every MUTATION durable before the caller's ack:
   first (checksum-verified; a corrupt snapshot REFUSES typed — its WAL
   suffix is gone, recovery cannot pretend), then every WAL record with
   a newer ``seq``.  A torn FINAL line (the ``append_jsonl`` crash
-  contract) is skipped LOUDLY; a corrupt record MID-log means external
-  damage and refuses typed (``WALCorruptionError``) — the operator
-  resyncs the replica from its quorum peers instead of serving a
-  silently-wrong prefix.  Every recovery journals ``WAL_REPLAY``.
+  contract) is skipped LOUDLY, and the WAL is rewritten to its valid
+  prefix (atomic, durable) before the replica serves: the port's
+  difference from the JAX package, whose next append lands after the
+  torn bytes on the same line, so a replica killed again before its
+  next compaction refuses the mid-log record it made.  A corrupt record
+  MID-log means external damage and refuses typed
+  (``WALCorruptionError``) — the operator resyncs the replica from its
+  quorum peers instead of serving a silently-wrong prefix.  Every
+  recovery journals ``WAL_REPLAY``.
 
 Disk faults (ENOSPC/EIO — injected by ``utils.checkpoint
 .arm_disk_fault`` or real) degrade AVAILABILITY-first and loudly: a
@@ -208,10 +213,29 @@ class DurableCASBackend(MemoryCASBackend):
                 f"CAS WAL {self.wal_path}: skipped {torn} torn final "
                 "record (hard-kill crash artifact); every acknowledged "
                 "earlier record was replayed", stacklevel=2)
+            self._drop_torn_tail(records)
         self._emit("WAL_REPLAY", path=self.wal_path,
                    snapshot_seq=snap_seq, applied=applied,
                    torn_skipped=torn, seq=self._seq,
                    keys=len(self._recs))
+
+    def _drop_torn_tail(self, records: list) -> None:
+        """Rewrite the WAL as its valid records, byte for byte as they
+        were appended, without the torn final line, so the next append
+        starts a line of its own.  A disk fault here degrades as a failed
+        append does: the replica serves, and the torn line stays until
+        the next compaction empties the WAL."""
+        from ..utils.checkpoint import atomic_write_text
+
+        text = "".join(json.dumps(dict(rec, ck=_checksum(rec))) + "\n"
+                       for rec in records)
+        try:
+            with self._scope():
+                atomic_write_text(self.wal_path, text, durable=True)
+        except OSError as e:
+            self.wal_faults += 1
+            warnings.warn(f"CAS WAL torn-tail repair degraded ({e})",
+                          stacklevel=3)
 
     # -- the write path -----------------------------------------------------
 

@@ -149,6 +149,29 @@ Phases (each raises on failure, and the script then exits non-zero):
      cold (1e-6 pct of tests/data/torch_families_golden.json), exact and
      near; two cells under kernel="fused" (0.1 bp).  The walls, the hit
      p50, the near rate and each run's launches are logged.
+ 17. the serving fleet (float64, the reference kernels), after phase 1's
+     build so no worker runs nvcc: (a) a FleetFront over one
+     EquilibriumService on the card, the 12 cells queried by a
+     FleetClient over HTTP at the paper's width from 4 client threads,
+     every value bitwise phase 16's cold bits, the hits, and JAX's HTTP
+     codes for a past deadline, an unknown scenario, an unknown path, a
+     chaos arm on a worker without --chaos and a NaN lane; (b)
+     run_fleet_load with 4 worker processes (python -m
+     aiyagari_hark_tpu_torch.serve.fleet --device cuda) on the card over
+     one shared store at the paper's width, bench.py's _fleet_smoke spec
+     (30 queries a worker, zipf 0.8, prefetch_k=2, lease TTL 2 s, worker
+     3 SIGTERMed after 10): every arrival served, dedup 1.0, no leaked
+     lease, exit 75, every served value bitwise its same-seed C=1 launch
+     in this process and equal on every worker that served it; (c)
+     bench.py's _chaos_smoke (the five drills, churn) and (d) _dr_smoke
+     (a 3-replica quorum of replica processes, the five DR drills, the
+     full-fleet SIGKILL with a live lease, the record maps recovered
+     bitwise, a fresh pool re-serving every cell), both at bench.py's
+     SERVE_SMOKE_KWARGS width.  In each leg every worker holds a context
+     on the card and no replica does (nvidia-smi's compute apps counted
+     against the live children), and no worker builds a library (its
+     /metrics).  The walls, p50/p99 per path and each worker's launches
+     (from its exit line) are logged.
 Every phase line carries the card's name and power limit.  The line
 before the last two holds the kernels' JSON record; then the card's name
 and power limit from nvidia-smi; the last line is the result.
@@ -3111,6 +3134,7 @@ def phase_serve(dev, golden):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     per_replay = {run: sum(n.values()) for run, n in launches.items()}
+    cold_values = {c: list(x.values) for x, c in zip(cold, SERVE_CELLS)}
     log("serve", cells=len(SERVE_CELLS), width=WIDTH, dtype="float64",
         max_batch=4, ladder=[1, 2, 4], walls_s=walls, stats=stats,
         hit_p50_ms=stats["hit"]["p50_ms"], near_rate=near_rate,
@@ -3119,6 +3143,629 @@ def phase_serve(dev, golden):
             "serve_requests", "serve_hit_rate", "serve_near_rate",
             "serve_batches", "serve_batch_occupancy", "serve_hit_p50_ms",
             "serve_p50_ms", "serve_compiles")},
+        phase_s=time.perf_counter() - t_phase)
+    return launches, cold_values
+
+
+# Phase 17: the serving fleet: worker processes behind HTTP on the card.
+FLEET_CELLS = [(s, r) for s in (1.0, 3.0, 5.0) for r in (0.0, 0.3, 0.6, 0.9)]
+FLEET_WORKERS = 4
+FLEET_DEVICE = "cuda"        # the workers' --device
+# bench.py's SERVE_SMOKE_KWARGS: the width of the JAX package's drills,
+# which time the lease protocol, not the kernels (17c, 17d)
+DRILL_WIDTH = dict(a_count=10, dist_count=32, labor_states=3, r_tol=1e-5,
+                   max_bisect=24)
+CHAOS_DRILL_CELLS = tuple((s, r, 0.25) for (s, r) in
+                          ((1.0, 0.0), (3.0, 0.3), (5.0, 0.6),
+                           (1.0, 0.9), (3.0, 0.0)))
+DR_DRILL_CELLS = tuple((s, r, 0.3) for (s, r) in
+                       ((1.0, 0.0), (3.0, 0.3), (5.0, 0.6),
+                        (1.0, 0.9), (3.0, 0.9)))
+DR_KILL_CELL = (5.0, 0.0, 0.3)
+# JAX's error -> HTTP status table, for the errors the card leg raises
+FLEET_HTTP = {"DeadlineExceeded": 504, "BadRequest": 400, "NotFound": 404,
+              "ChaosDisabled": 404, "EquilibriumSolveFailed": 500}
+
+
+def fleet_check(ok, what):
+    if not ok:
+        raise AssertionError(f"fleet: {what}")
+
+
+def _children() -> dict:
+    """This process's child processes that run a fleet worker or a CAS
+    replica, pid -> "worker" or "replica" (from /proc)."""
+    me, out = os.getpid(), {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            if ppid != me:
+                continue
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode()
+        except (OSError, ValueError, IndexError):
+            continue
+        if "serve.fleet" in cmd:
+            out[int(d)] = "worker"
+        elif "serve.lease" in cmd:
+            out[int(d)] = "replica"
+    return out
+
+
+class CardWatch:
+    """Samples, every ``interval_s`` on a thread, the contexts on the card
+    (``nvidia-smi --query-compute-apps=pid,used_memory``) beside this
+    process's live worker and replica children (from /proc).  In the
+    chip machine's container nvidia-smi reports every context's pid as 1
+    (its own namespace's view), so a context is matched to a process by
+    count: with this process's own context, a sample holds 1 + (workers
+    up) contexts when every worker holds one and no replica does."""
+
+    def __init__(self, interval_s: float = 0.5):
+        import threading
+
+        self.interval_s = interval_s
+        self.samples: list = []   # (contexts, MiB each, workers, replicas)
+        self.kids: dict = {}      # pid -> "worker" | "replica", ever seen
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="card-watch")
+
+    def sample(self) -> None:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=30).stdout
+        mib = []
+        for line in out.splitlines():
+            parts = [x.strip() for x in line.split(",")]
+            if len(parts) == 2 and parts[0].isdigit():
+                try:
+                    mib.append(float(parts[1]))
+                except ValueError:           # "[N/A]"
+                    mib.append(float("nan"))
+        live = _children()
+        self.kids.update(live)
+        roles = list(live.values())
+        self.samples.append((len(mib), sorted(mib), roles.count("worker"),
+                             roles.count("replica")))
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            self.sample()
+            self._stop.wait(self.interval_s)
+
+    def __enter__(self) -> "CardWatch":
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join(60)
+
+    def verdict(self, leg: str, workers: int, replicas: int = 0) -> dict:
+        """A sample with ``workers`` workers (and ``replicas`` replicas) up
+        holds exactly 1 + ``workers`` contexts: each worker runs on the
+        card, no replica does; and nine samples in ten hold no more
+        contexts than this process and its live workers (the rest are
+        the instants around a worker's exit)."""
+        full = [x for x in self.samples
+                if x[2] == workers and x[3] >= replicas]
+        good = [x for x in full if x[0] == 1 + workers]
+        clean = sum(x[0] <= 1 + x[2] for x in self.samples)
+        fleet_check(good, f"{leg}: no sample with {workers} workers and "
+                    f"{replicas} replicas up holds {1 + workers} contexts "
+                    f"(samples {full[:8]})")
+        fleet_check(clean >= 0.9 * len(self.samples),
+                    f"{leg}: {len(self.samples) - clean} of "
+                    f"{len(self.samples)} samples hold more contexts than "
+                    "this process and its workers")
+        roles = list(self.kids.values())
+        return dict(samples=len(self.samples), clean=clean,
+                    full_pool=good[0], worker_pids=roles.count("worker"),
+                    replica_pids=roles.count("replica"))
+
+
+def _fleet_vs_reference(dev, served_values: dict, kw: dict):
+    """Each served value against an in-process C=1 launch on the card with
+    the same seed, as bench.py's _served_vs_reference: a value that
+    carries its solve's bracket_init on every field, one without it on
+    r*, labor and status.  Returns (mismatched keys, seeded compares)."""
+    from aiyagari_hark_tpu_torch.serve import EquilibriumService, make_query
+
+    ref_svc = EquilibriumService(start_worker=False, max_batch=4,
+                                 ladder=(1, 2, 4), device=dev)
+    bad, seeded = [], 0
+    try:
+        for key, vals in sorted(served_values.items()):
+            c = vals["cell"]
+            q = make_query(c[0], c[1], labor_sd=c[2], **kw)
+            seed = vals.get("bracket_init")
+            fields = ("r_star", "labor", "status")
+            if seed is not None:
+                seeded += 1
+                ref = ref_svc.reference_solve(q, bracket_init=tuple(seed))
+                fields += ("capital",)
+            else:
+                ref = ref_svc.reference_solve(q)
+            if any(vals[f] != getattr(ref, f) for f in fields):
+                bad.append(key)
+    finally:
+        ref_svc.close()
+    return bad, seeded
+
+
+def _worker_checks(leg: str, snapshots: list, launches: dict,
+                   kernels=PATH_KERNELS["reference"]) -> None:
+    """No worker built a library (its /metrics), and the workers that
+    reported their launches ran the path's kernels and no other."""
+    misses = [s.get("serve_compile_cache_misses") for s in snapshots]
+    fleet_check(snapshots and all(m == 0 for m in misses),
+                f"{leg}: worker compile-cache misses {misses}")
+    told = [n for n in launches.values() if n is not None]
+    fleet_check(told and all(sum(n[k] for n in told) > 0 for k in kernels)
+                and all(n[k] == 0 for n in told for k in n
+                        if k not in kernels),
+                f"{leg}: worker launches {launches}")
+
+
+def _http_status(fn):
+    """(code, error name) of a call that must fail over HTTP."""
+    import urllib.error
+
+    from aiyagari_hark_tpu_torch.serve import FleetHTTPError
+
+    try:
+        fn()
+    except FleetHTTPError as e:
+        return e.code, e.payload.get("error")
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read().decode()).get("error")
+    raise AssertionError("fleet: the call did not fail")
+
+
+def _fleet_front(dev, golden, serve_cold, launches):
+    """17a: a FleetFront over one EquilibriumService on the card, queried
+    by a FleetClient over HTTP at the paper's width."""
+    import threading
+
+    from aiyagari_hark_tpu_torch.ops import kernels as K
+    from aiyagari_hark_tpu_torch.serve import (EquilibriumService,
+                                               FleetClient, FleetFront)
+
+    sd = golden["labor_sd"]
+    kw = dict(WIDTH, dtype="float64")
+    svc = EquilibriumService(start_worker=True, max_batch=4,
+                             max_wait_s=0.005, ladder=(1, 2, 4),
+                             donor_cutoff=0.0, device=dev)
+    front = FleetFront(svc).start()
+    bad = EquilibriumService(start_worker=True, max_batch=4,
+                             ladder=(1, 2, 4), inject_fault_mode="nan",
+                             device=dev)
+    bad_front = FleetFront(bad).start()
+    try:
+        client = FleetClient([front.url], timeout=600.0)
+        got = {}
+
+        def ask(k):
+            for s, r in FLEET_CELLS[k::FLEET_WORKERS]:
+                got[(s, r)] = client.query((s, r, sd), kw)
+
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=ask, args=(k,))
+                   for k in range(FLEET_WORKERS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(600)
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        launches["front"] = dict(K.LAUNCHES)
+        fleet_check(len(got) == len(FLEET_CELLS)
+                    and all(x["path"] == "cold" for x in got.values()),
+                    f"17a paths {[x['path'] for x in got.values()]}")
+        fleet_check(all(got[c]["values"] == serve_cold[c]
+                        and got[c]["r_star"] == serve_cold[c][0]
+                        for c in FLEET_CELLS),
+                    "17a: the values over HTTP are not phase 16's cold "
+                    "bits")
+        _launched(launches, "front")
+        hit_ms = []
+        for s, r in FLEET_CELLS:
+            t0 = time.perf_counter()
+            x = client.query((s, r, sd), kw)
+            hit_ms.append(1e3 * (time.perf_counter() - t0))
+            fleet_check(x["path"] == "hit"
+                        and x["values"] == serve_cold[(s, r)],
+                        f"17a: the hit of {(s, r)}")
+        hit_ms.sort()
+        codes = {
+            "DeadlineExceeded": _http_status(lambda: client.query(
+                (2.0, 0.5, sd), kw, deadline=-1.0)),      # not stored
+            "BadRequest": _http_status(lambda: client.query(
+                (3.0, 0.6, sd), kw, scenario="nope")),
+            "NotFound": _http_status(lambda: client.get(front.url,
+                                                        "/nope")),
+            "ChaosDisabled": _http_status(lambda: client._post(
+                front.url, "/chaos", {})),
+            "EquilibriumSolveFailed": _http_status(lambda: FleetClient(
+                [bad_front.url], timeout=600.0).query(
+                    (1.0, 0.3, sd), dict(kw, fault_iter=0))),
+        }
+        fleet_check(all(codes[e] == (c, e) for e, c in FLEET_HTTP.items()),
+                    f"17a typed errors {codes}")
+        snap = client.get(front.url, "/metrics")
+    finally:
+        front.stop()
+        svc.close()
+        bad_front.stop()
+        bad.close()
+    return dict(cold_wall_s=cold_s, http_hit_p50_ms=hit_ms[len(hit_ms) // 2],
+                http_hit_p99_ms=hit_ms[-1], codes=codes,
+                serve_batches=snap["serve_batches"])
+
+
+def _fleet_load(dev, golden, tmp, launches):
+    """17b: run_fleet_load, 4 worker processes on the card over one
+    shared store at the paper's width: bench.py's _fleet_smoke spec."""
+    from aiyagari_hark_tpu_torch.serve.loadgen import (FleetSpec,
+                                                       run_fleet_load)
+
+    sd = golden["labor_sd"]
+    kw = dict(WIDTH, dtype="float64")
+    spec = FleetSpec(cells=tuple((s, r, sd) for s, r in FLEET_CELLS),
+                     model_kwargs=kw, n_workers=FLEET_WORKERS,
+                     queries_per_worker=30, seed=20260804, zipf_s=0.8,
+                     prefetch_k=2, lease_ttl_s=2.0, warm_count=0,
+                     sigterm_worker=3, sigterm_after=10, device=FLEET_DEVICE)
+    t0 = time.perf_counter()
+    with CardWatch() as watch:
+        rep = run_fleet_load(spec, store_dir=os.path.join(tmp, "load"))
+    wall = time.perf_counter() - t0
+    on_card = watch.verdict("17b", FLEET_WORKERS)
+    launches["load"] = rep.worker_launches
+    bad, seeded = _fleet_vs_reference(dev, rep.served_values, kw)
+    served = sum(n for o, n in rep.counts.items() if o.startswith("served:"))
+    fleet_check(rep.unresolved == 0 and served == rep.arrivals,
+                f"17b outcomes {rep.counts}, {rep.unresolved} unresolved")
+    fleet_check(rep.dedup_ratio == 1.0 and rep.leases_leaked == 0,
+                f"17b dedup {rep.dedup_ratio}, {rep.leases_leaked} leaked")
+    fleet_check(rep.interrupted_rcs.get(3) == 75
+                and rep.interrupted_journaled,
+                f"17b SIGTERMed worker rc {rep.interrupted_rcs}")
+    fleet_check(not bad and rep.value_divergence == 0,
+                f"17b: {len(bad)} served values not their C=1 launch, "
+                f"{rep.value_divergence} divergent")
+    _worker_checks("17b", rep.worker_snapshots, rep.worker_launches)
+    return dict(wall_s=wall, arrivals=rep.arrivals, counts=rep.counts,
+                p50_ms=rep.p50_ms, p99_ms=rep.p99_ms,
+                cold_solves=rep.cold_solves,
+                distinct=rep.distinct_published,
+                dedup_ratio=rep.dedup_ratio,
+                prefetch_issued=rep.prefetch_issued,
+                prefetch_converted=rep.prefetch_converted,
+                remote_hits=rep.remote_hits, claims_won=rep.claims_won,
+                claims_lost=rep.claims_lost, reclaims=rep.lease_reclaims,
+                leaked=rep.leases_leaked, rcs=rep.interrupted_rcs,
+                seeded_compares=seeded, compared=len(rep.served_values),
+                on_card=on_card)
+
+
+def _fleet_chaos(dev, tmp, launches):
+    """17c: run_fleet_load(chaos=...) with bench.py's _chaos_smoke spec and
+    plan at the drills' width: the five drills on live workers."""
+    from aiyagari_hark_tpu_torch.serve.chaos import ChaosPlan
+    from aiyagari_hark_tpu_torch.serve.loadgen import (FleetSpec,
+                                                       run_fleet_load)
+
+    kw = dict(DRILL_WIDTH, dtype="float64")
+    spec = FleetSpec(cells=tuple((s, r, 0.2) for s, r in FLEET_CELLS),
+                     model_kwargs=kw, n_workers=FLEET_WORKERS,
+                     queries_per_worker=30, seed=20260806, zipf_s=0.8,
+                     prefetch_k=0, lease_ttl_s=2.0, warm_count=0,
+                     device=FLEET_DEVICE)
+    plan = ChaosPlan(drill_cells=CHAOS_DRILL_CELLS,
+                     churn=((40, "leave", 2), (60, "join", None)),
+                     slow_publish_s=8.0, partition_reads=2,
+                     recovery_queries=6, settle_timeout_s=60.0)
+    t0 = time.perf_counter()
+    with CardWatch() as watch:
+        rep = run_fleet_load(spec, store_dir=os.path.join(tmp, "chaos"),
+                             chaos=plan)
+    wall = time.perf_counter() - t0
+    on_card = watch.verdict("17c", FLEET_WORKERS)
+    launches["chaos"] = rep.worker_launches
+    ch = rep.chaos
+    bad, seeded = _fleet_vs_reference(dev, rep.served_values, kw)
+    drills = {r["drill"]: (r["detected"], r["injected"])
+              for r in ch["drills"]}
+    fleet_check(all(d == i for d, i in drills.values()),
+                f"17c drills (detected, injected) {drills}")
+    fleet_check(ch["dedup_ratio"] == 1.0 and rep.dedup_ratio == 1.0
+                and ch["recovery_dup_publishes"] == 0,
+                f"17c dedup {ch['dedup_ratio']} (drilled), "
+                f"{rep.dedup_ratio} (traffic), "
+                f"{ch['recovery_dup_publishes']} recovery duplicates")
+    fleet_check(rep.unresolved == 0 and rep.leases_leaked == 0,
+                f"17c {rep.unresolved} unresolved, {rep.leases_leaked} "
+                "leaked")
+    fleet_check(not bad and rep.value_divergence == 0,
+                f"17c: {len(bad)} served values not their C=1 launch, "
+                f"{rep.value_divergence} divergent")
+    fleet_check(ch["joins"] >= 1 and ch["leaves"] >= 1 and ch["kills"] >= 1,
+                f"17c churn {ch['joins']} joins, {ch['leaves']} leaves, "
+                f"{ch['kills']} kills")
+    _worker_checks("17c", rep.worker_snapshots, rep.worker_launches)
+    return dict(wall_s=wall, arrivals=rep.arrivals, counts=rep.counts,
+                drills=drills, availability=ch["availability"],
+                churn_p99_ms=ch["churn_p99_ms"], hedges=ch["hedges"],
+                p50_ms=rep.p50_ms, p99_ms=rep.p99_ms,
+                seeded_compares=seeded, compared=len(rep.served_values),
+                on_card=on_card)
+
+
+def _fleet_dr(dev, tmp, launches):
+    """17d: bench.py's _dr_smoke on the card: 4 --chaos workers on a
+    3-replica quorum (ReplicaSet), the five DR drills, then the whole
+    fleet SIGKILLed with a live lease, the replicas' record maps recovered
+    bitwise, a fresh pool re-serving every cell."""
+    import signal
+    import threading
+
+    from aiyagari_hark_tpu_torch.obs.journal import read_journal
+    from aiyagari_hark_tpu_torch.serve.chaos import (DRPlan, _poll_until,
+                                                     run_dr_drills)
+    from aiyagari_hark_tpu_torch.serve.lease import (LoopbackCASBackend,
+                                                     make_backend)
+    from aiyagari_hark_tpu_torch.serve.loadgen import (FleetCtl, FleetSpec,
+                                                       _spawn_fleet,
+                                                       exit_launches)
+    from aiyagari_hark_tpu_torch.serve.replicated import ReplicaSet
+    from aiyagari_hark_tpu_torch.serve.store import SolutionStore
+
+    kw = dict(DRILL_WIDTH, dtype="float64")
+    cells = tuple((s, r, 0.2) for s, r in FLEET_CELLS)
+    served_values: dict = {}
+    divergence = served = arrivals = errors = 0
+
+    def note(cell, res) -> None:
+        nonlocal divergence, served
+        served += 1
+        key = int(res["key"])
+        vals = {"cell": tuple(float(c) for c in cell),
+                "r_star": res["r_star"], "capital": res["capital"],
+                "labor": res["labor"], "status": res["status"],
+                "bracket_init": res.get("bracket_init")}
+        prior = served_values.get(key)
+        if prior is not None and (prior["r_star"], prior["labor"],
+                                  prior["status"]) != (
+                vals["r_star"], vals["labor"], vals["status"]):
+            divergence += 1
+        served_values.setdefault(key, vals)
+
+    t0 = time.perf_counter()
+    store_dir = os.path.join(tmp, "dr")
+    os.makedirs(store_dir)
+    with CardWatch() as watch, ReplicaSet(os.path.join(tmp, "replicas"),
+                                          n=3, snapshot_every=16) as replicas:
+        spec = FleetSpec(cells=cells, model_kwargs=kw,
+                         n_workers=FLEET_WORKERS, queries_per_worker=0,
+                         seed=20260807, lease_ttl_s=2.0,
+                         lease_backend=replicas.spec, device=FLEET_DEVICE)
+        journals1 = [os.path.join(store_dir, f"journal_w{i}.jsonl")
+                     for i in range(spec.n_workers)]
+        t_spawn = time.perf_counter()
+        procs, urls = _spawn_fleet(spec, store_dir, journals1,
+                                   ready_timeout_s=180.0, chaos=True)
+        spawn_s = [time.perf_counter() - t_spawn]
+        ctl = FleetCtl(spec, procs, urls, journals1, store_dir,
+                       timeout_s=120.0)
+        try:
+            for rnd in range(2):
+                for j, cell in enumerate(cells):
+                    arrivals += 1
+                    try:
+                        note(cell, ctl.query(
+                            cell, prefer=(j + rnd) % spec.n_workers))
+                    except Exception:
+                        errors += 1
+            t_drills = time.perf_counter()
+            info = run_dr_drills(DRPlan(drill_cells=DR_DRILL_CELLS,
+                                        settle_timeout_s=60.0),
+                                 ctl, replicas)
+            drills_s = time.perf_counter() - t_drills
+            snaps1 = [ctl._client.get(u, "/metrics") for i, u in
+                      enumerate(urls) if ctl.alive(i)]
+            ctl.post(0, "/chaos", {"slow_publish_s": 12.0,
+                                   "slow_cells": [list(DR_KILL_CELL)]})
+            parked: dict = {}
+
+            def park():
+                try:
+                    parked["res"] = ctl.query(DR_KILL_CELL, prefer=0)
+                except Exception as e:
+                    parked["err"] = e
+
+            pt = threading.Thread(target=park, name="dr-park")
+            pt.start()
+            kill_parked = _poll_until(
+                lambda: ctl.fleet_info(0) is not None
+                and len(ctl.fleet_info(0)["held_leases"]) > 0, 10.0)
+            for p in procs:
+                p.send_signal(signal.SIGKILL)
+            for p in procs:
+                p.wait(30.0)
+            pt.join(60.0)
+        except BaseException:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+            raise
+
+        dumps_before = []
+        for port in replicas.ports:
+            cli = LoopbackCASBackend(f"127.0.0.1:{port}")
+            dumps_before.append(sorted(map(tuple, cli.dump())))
+            cli.close()
+        replicas.kill_all(signal.SIGKILL)
+        t_rec0 = time.perf_counter()
+        for i in range(replicas.n):
+            replicas.restart(i)
+        state_mismatches = recovered_keys = 0
+        for i, port in enumerate(replicas.ports):
+            cli = LoopbackCASBackend(f"127.0.0.1:{port}")
+            after = sorted(map(tuple, cli.dump()))
+            cli.close()
+            recovered_keys = max(recovered_keys, len(after))
+            state_mismatches += after != dumps_before[i]
+
+        journals2 = [os.path.join(store_dir, f"journal_r{i}.jsonl")
+                     for i in range(spec.n_workers)]
+        t_spawn = time.perf_counter()
+        procs2, urls2 = _spawn_fleet(spec, store_dir, journals2,
+                                     ready_timeout_s=180.0)
+        spawn_s.append(time.perf_counter() - t_spawn)
+        ctl2 = FleetCtl(spec, procs2, urls2, journals1 + journals2,
+                        store_dir, timeout_s=120.0)
+        try:
+            arrivals += 1
+            res_orphan = ctl2.query(DR_KILL_CELL)
+            note(DR_KILL_CELL, res_orphan)
+            orphan_key = int(res_orphan["key"])
+            orphan_reclaimed = any(
+                ev.get("key") == orphan_key
+                for jp in journals2 if os.path.exists(jp)
+                for ev in read_journal(jp,
+                                       event="FLEET_LEASE_RECLAIM"))
+            for j, cell in enumerate(cells):
+                arrivals += 1
+                try:
+                    note(cell, ctl2.query(cell,
+                                          prefer=j % spec.n_workers))
+                except Exception:
+                    errors += 1
+            recovery_s = time.perf_counter() - t_rec0
+            snaps2 = [ctl2._client.get(u, "/metrics") for u in urls2]
+        except BaseException:
+            for p in procs2:
+                if p.poll() is None:
+                    p.kill()
+            raise
+        for p in procs2:
+            p.send_signal(signal.SIGTERM)
+        worker_launches = {}
+        for i, p in enumerate(procs2):
+            try:
+                p.wait(60.0)
+            except Exception:
+                p.kill()
+                p.wait()
+            worker_launches[i] = exit_launches(p)
+            p.stdout.close()
+        audit = SolutionStore(
+            disk_path=store_dir, shared=True, lease_ttl_s=2.0,
+            owner="dr-audit",
+            lease_backend=make_backend(replicas.spec, root=store_dir))
+        t_audit = time.perf_counter()
+        while (audit.lease_files()
+               and time.perf_counter() - t_audit < 12.0):
+            audit.gc_stale_leases()
+            if audit.lease_files():
+                time.sleep(0.2)
+        leaked = len(audit.lease_files())
+        audit.close()
+        wal_replays = snapshot_compacts = 0
+        for jp in replicas.journals:
+            if os.path.exists(jp):
+                wal_replays += len(read_journal(jp, event="WAL_REPLAY"))
+                snapshot_compacts += len(read_journal(
+                    jp, event="SNAPSHOT_COMPACT"))
+        pub_counts: dict = {}
+        for jp in journals1 + journals2:
+            if os.path.exists(jp):
+                for ev in read_journal(jp, event="FLEET_PUBLISH"):
+                    k = int(ev["key"])
+                    pub_counts[k] = pub_counts.get(k, 0) + 1
+    wall = time.perf_counter() - t0
+    on_card = watch.verdict("17d", FLEET_WORKERS, replicas=3)
+    launches["dr"] = worker_launches
+    bad, seeded = _fleet_vs_reference(dev, served_values, kw)
+    drill_keys = set(info["drill_keys"])
+    expected_dup = set(info["expected_dup_keys"])
+    clean = {k: n for k, n in pub_counts.items() if k not in drill_keys}
+    dedup = sum(clean.values()) / len(clean) if clean else None
+    violations = sum(n - 1 for k, n in pub_counts.items()
+                     if k in drill_keys and k not in expected_dup and n > 1)
+    drills = {r["drill"]: (r["detected"], r["injected"])
+              for r in info["drills"]}
+    fleet_check(all(d == i for d, i in drills.values()),
+                f"17d DR drills (detected, injected) {drills}")
+    fleet_check(state_mismatches == 0 and kill_parked and orphan_reclaimed,
+                f"17d recovery: {state_mismatches} replica maps differ, "
+                f"lease parked {kill_parked}, orphan reclaimed "
+                f"{orphan_reclaimed}")
+    fleet_check(dedup == 1.0 and violations == 0 and leaked == 0
+                and errors == 0,
+                f"17d dedup {dedup}, {violations} drill violations, "
+                f"{leaked} leaked, {errors} unanswered")
+    fleet_check(not bad and divergence == 0,
+                f"17d: {len(bad)} served values not their C=1 launch, "
+                f"{divergence} divergent")
+    fleet_check(wal_replays >= 3 and snapshot_compacts >= 1,
+                f"17d {wal_replays} WAL replays, {snapshot_compacts} "
+                "compactions")
+    _worker_checks("17d", snaps1 + snaps2, worker_launches)
+    return dict(wall_s=wall, drills_s=drills_s, recovery_s=recovery_s,
+                pool_start_s=spawn_s,
+                arrivals=arrivals, served=served, drills=drills,
+                recovered_keys=recovered_keys, wal_replays=wal_replays,
+                snapshot_compacts=snapshot_compacts, dedup_ratio=dedup,
+                seeded_compares=seeded, compared=len(served_values),
+                on_card=on_card)
+
+
+def phase_fleet(dev, golden, serve_cold):
+    """Phase 17, the serving fleet on the card (float64, the reference
+    kernels): (a) a FleetFront over one EquilibriumService queried by a
+    FleetClient over HTTP at the paper's width, the 12 cells' values
+    bitwise phase 16's cold bits, the hits, JAX's HTTP codes for the
+    typed errors; (b) run_fleet_load with 4 worker processes on the card
+    over one shared store at the paper's width, worker 3 SIGTERMed after
+    10 queries (bench.py's _fleet_smoke spec): every arrival served,
+    dedup 1.0, no leaked lease, exit 75, every served value bitwise its
+    same-seed C=1 launch in this process and equal on every worker;
+    (c) the five chaos drills (bench.py's _chaos_smoke) and (d) the five
+    DR drills on a 3-replica quorum with the full-fleet SIGKILL (bench.py's
+    _dr_smoke), both at the drills' width.  In each leg every worker holds
+    a context on the card, no replica does, and no worker builds a
+    library.  Returns each leg's launches: 17a's in this process, the
+    others per worker."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    launches: dict = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    try:
+        legs = {"front": _fleet_front(dev, golden, serve_cold, launches)}
+        log("fleet_front", **legs["front"])
+        legs["load"] = _fleet_load(dev, golden, tmp, launches)
+        log("fleet_load", **legs["load"])
+        legs["chaos"] = _fleet_chaos(dev, tmp, launches)
+        log("fleet_chaos", **legs["chaos"])
+        legs["dr"] = _fleet_dr(dev, tmp, launches)
+        log("fleet_dr", **legs["dr"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("fleet", width=WIDTH, drill_width=DRILL_WIDTH, dtype="float64",
+        workers=FLEET_WORKERS, launches=launches,
+        walls_s={leg: r.get("wall_s", r.get("cold_wall_s"))
+                 for leg, r in legs.items()},
         phase_s=time.perf_counter() - t_phase)
     return launches
 
@@ -3184,7 +3831,8 @@ def main() -> int:
     launches_pf = phase_portfolio(dev)
     launches_dur = phase_durability(dev)
     launches_obs = phase_obs(dev, sweeps)
-    launches_serve = phase_serve(dev, golden)
+    launches_serve, serve_cold = phase_serve(dev, golden)
+    launches_fleet = phase_fleet(dev, golden, serve_cold)
     for name in PATH_KERNELS["fused"]:
         launches[name] = f_launches[name]
         launches32[name] = f_launches32[name]
@@ -3269,6 +3917,15 @@ def main() -> int:
     for k in kernels:
         k["launches_serve"] = {run: n[k["name"]]
                                for run, n in launches_serve.items()}
+    # phase 17: each kernel's launches per fleet leg: the in-process
+    # front (17a), and per worker process as its exit line reported them
+    # (17b-17d; a SIGKILLed worker reports nothing, null)
+    for k in kernels:
+        k["launches_fleet"] = {
+            leg: ({w: (None if n is None else n[k["name"]])
+                   for w, n in per.items()} if leg != "front" else
+                  per[k["name"]])
+            for leg, per in launches_fleet.items()}
     kernels[-1]["over_egm_plus_dist"] = fused_over_parts(records)
     print(json.dumps({
         "kernels": kernels,

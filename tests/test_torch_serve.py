@@ -18,7 +18,7 @@ packed field, at every batch packing and padding; a NaN lane fails only
 its own future and is never cached; the threaded worker serves the bits
 of ``flush()``.  Also: the store's package keys (a JAX-written directory
 serves no exact hit and loses no file), a corrupted disk entry evicted
-and re-solved, and what raises until ROADMAP items 6 and 8d land.
+and re-solved, and what raises until ROADMAP item 6 lands.
 """
 
 import os
@@ -379,8 +379,6 @@ def test_deadline_expired_at_the_seam_fails_typed_as_jax():
 # -- what is not ported, and the device default ------------------------------------
 
 def test_mesh_and_state_shards_raise_naming_item_6():
-    """(``make_backend("replicated")``, item 8d, is held in
-    ``tests/test_torch_serve_store.py``.)"""
     with pytest.raises(NotImplementedError, match="item 6"):
         tserve.EquilibriumService(start_worker=False, mesh="auto",
                                   device="cpu")

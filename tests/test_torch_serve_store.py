@@ -240,7 +240,13 @@ def test_lease_backends_decide_as_jax(tmp_path, kind):
 
 
 def test_make_backend_spellings_and_replicated_not_ported(tmp_path):
-    for mod in (jserve, tserve):
+    """Every spelling builds the same backend in both packages; the
+    replicated one (once not ported) is each package's quorum client,
+    and an even replica count is refused in both."""
+    import aiyagari_hark_tpu.serve.replicated as jrep
+    import aiyagari_hark_tpu_torch.serve.replicated as trep
+
+    for mod, rep in ((jserve, jrep), (tserve, trep)):
         assert isinstance(mod.make_backend("dir", root=str(tmp_path)),
                           mod.SharedDirBackend)
         assert isinstance(mod.make_backend("memory"), mod.MemoryCASBackend)
@@ -248,10 +254,14 @@ def test_make_backend_spellings_and_replicated_not_ported(tmp_path):
             mod.make_backend("dir")
         with pytest.raises(ValueError, match="unknown lease backend"):
             mod.make_backend("zookeeper")
-    with pytest.raises(NotImplementedError, match="item 8d"):
-        tserve.make_backend("replicated")
-    with pytest.raises(NotImplementedError, match="item 8d"):
-        tserve.make_backend("replicated:127.0.0.1:1,127.0.0.1:2")
+        quorum = mod.make_backend(
+            "replicated:127.0.0.1:1, 127.0.0.1:2,127.0.0.1:3")
+        assert isinstance(quorum, rep.ReplicatedCASBackend)
+        assert (quorum.addresses, quorum.majority) == (
+            ["127.0.0.1:1", "127.0.0.1:2", "127.0.0.1:3"], 2)
+        quorum.close()
+        with pytest.raises(ValueError, match="odd replica count"):
+            mod.make_backend("replicated:127.0.0.1:1,127.0.0.1:2")
 
 
 def _wal_state(backend):
