@@ -1,8 +1,8 @@
 // The stationary-distribution fixed point of the Young-lottery
-// push-forward as block-level device code, shared by
-// stationary_lottery_grid.cu and fused_cell_grid.cu.
+// push-forward as device code, shared by stationary_lottery_grid.cu and
+// fused_cell_grid.cu.
 //
-// One thread block runs one lane.  The iteration is models/household.py's
+// The iteration is models/household.py's
 // accelerated_distribution_fixed_point: an Aitken extrapolation every
 // `accel_every` steps (clipped at 0, renormalised by a pairwise sum), the
 // 512-step stall exit, and the best certified iterate as the result.
@@ -13,41 +13,66 @@
 // target, all left-neighbour shares in source order, then all
 // right-neighbour shares in source order (ops.kernels.lottery_csr).  Each
 // target sums its sources from 0 in that order: no float atomics, so a
-// lane's bits depend neither on its batchmates nor on the run.  Two
-// neighbouring threads share a target row: each sums the sources of half
-// the states, a shuffle swaps the sums, and each mixes half the next
-// states over all states in order, so the [D, N] x [N, N] labor mix runs
-// in registers right after the gather.
+// lane's bits depend neither on its batchmates nor on the run.
+//
+// Who runs a lane:
+//  - one thread block (lottery_fixed_point) holding every row, its lottery
+//    and iterates in shared memory where they fit (the wrappers decide by
+//    size, from the byte counts below), else on global pointers.  Two
+//    neighbouring threads share a target row: each sums the sources of
+//    half the states, a shuffle swaps the sums, and each mixes half the
+//    next states over all states in order, so the [D, N] x [N, N] labor
+//    mix runs in registers right after the gather;
+//  - a thread-block cluster (lottery_cluster_loop, stationary_lottery_grid
+//    only) of kLotteryClusterMax blocks, block r owning the target rows
+//    [r R, r R + R), R = ceil(D / 8), in every labor state: its rows of
+//    the four iterates (current, previous, next, best) and its rows'
+//    starts in its own shared memory, and its rows' lottery entries
+//    staged there too when they fit the room the wrapper gives (counted
+//    on the device from `start`, since the split depends on the policy),
+//    else read where the wrapper built them.  Four threads share a row;
+//    a source that another block owns is read through distributed shared
+//    memory.  The residual's max, the Aitken sums and the renormalisation
+//    combine across the cluster; every block computes the same diff,
+//    rate, total, step count and exit, bit for bit.  The one-block loop is
+//    kept apart: folded into one function, its global layout compiled to
+//    a gather loop unrolled 4 times instead of 16 and ran 10-21 % slower
+//    on the card.
 //
 // What bounds it on an H100: neither bytes nor FLOPs but the chain of
-// thousands of steps in one SM, each at D=500, N=7 some 3.5 k outputs
+// thousands of dependent steps, each at D=500, N=7 some 3.5 k outputs
 // gathered and mixed (about 60 k flops and a few thousand shared-memory
-// loads) and one block-wide max.  The design keeps that chain on chip and
-// short.  Where the lane fits one block's shared memory (the wrappers
-// decide by size, from the byte counts below), the CSR, the transposed
-// transition and the three iterates (current, previous, next) sit in
-// shared memory for the whole loop, and the best iterate too when it fits,
-// else in the output; the kernels are compiled once per layout, so the
-// compiler addresses shared memory as such.  A plain step holds one
-// barrier (the residual's max, its buffer alternating between steps).  The
+// loads) and a max over them.  The design keeps that chain on chip and
+// short: a plain step holds one barrier (block-wide, or the cluster's),
+// the residual's max into buffers that alternate between steps.  The
 // Aitken dot products and the renormalisation are common.cuh's
 // buffer-free pairwise sums (registers and warp shuffles, one barrier
-// each), the same tree as household.pairwise_sum.  Where the lane does not
-// fit (the fine width), the same code runs on global pointers, with the
-// same bits.
+// each, plus one across a cluster), the same tree as
+// household.pairwise_sum; its chunks need not fall on a cluster block's
+// rows, so a cluster reads them through distributed shared memory, once
+// every `accel_every` steps.
 #pragma once
+
+#include <cooperative_groups.h>
 
 #include "common.cuh"
 
 namespace ahtt {
 
+namespace cg = cooperative_groups;
+
 constexpr int kLotteryMaxN = 16;
 constexpr int kStallWindow = 512;
+constexpr int kLotteryClusterMax = 8;     // the portable cluster size
 
 // Shared scratch of the loop, in elements of T: two alternating buffers
-// for the residual's reduction and three for the Aitken sums.
+// for the residual's reduction and three for the Aitken sums; a cluster
+// loop's adds three slots the other blocks read.
 __host__ __device__ constexpr int lottery_red_elems(int threads) {
   return 5 * (threads / 32);
+}
+__host__ __device__ constexpr int lottery_cluster_red_elems(int threads) {
+  return lottery_red_elems(threads) + 3;
 }
 
 // Bytes of the transition, transposed and padded to [kLotteryMaxN,
@@ -75,6 +100,26 @@ __host__ __device__ inline size_t lottery_iterate_bytes(int D, int N,
   return (best ? 4 : 3) * (size_t)D * N * sizeof(T);
 }
 
+// Target rows each block of a cluster lane owns.
+__host__ __device__ inline int lottery_cluster_rows(int D) {
+  return (D + kLotteryClusterMax - 1) / kLotteryClusterMax;
+}
+
+// Bytes of one cluster block's shared memory: the padded P, its rows of
+// the four iterates [4, R N] in T, room for `stage` staged lottery
+// entries (coefficients in T, then their start [N, R+1] and packed
+// sources in int), 16-byte aligned.  With stage = 0: the part that must
+// fit for the lane to take the cluster layout.
+template <typename T>
+__host__ __device__ inline size_t lottery_cluster_bytes(int D, int N,
+                                                        int stage) {
+  const size_t rn = (size_t)lottery_cluster_rows(D) * N;
+  const size_t b = lottery_p_bytes<T>() + (4 * rn + stage) * sizeof(T)
+                   + ((size_t)N * (lottery_cluster_rows(D) + 1) + stage)
+                         * sizeof(int);
+  return (b + 15) / 16 * 16;
+}
+
 // The lottery_csr_bytes region at `base`.
 template <typename T>
 struct LotteryCsr {
@@ -90,12 +135,94 @@ struct LotteryCsr {
   }
 };
 
+// The lottery_cluster_bytes region at `base`.
+template <typename T>
+struct LotteryClusterSmem {
+  T* Pt;
+  T* it;    // the iterates [3, R N], then the best one [R N]
+  T* cf;    // [stage]
+  int* st;  // [N, R+1]
+  int* se;  // [stage]
+  __device__ LotteryClusterSmem(unsigned char* base, int D, int N,
+                                int stage) {
+    const int rn = lottery_cluster_rows(D) * N;
+    Pt = reinterpret_cast<T*>(base);
+    it = Pt + kLotteryMaxN * kLotteryMaxN;
+    cf = it + 4 * rn;
+    st = reinterpret_cast<int*>(cf + stage);
+    se = st + N * (lottery_cluster_rows(D) + 1);
+  }
+};
+
 // Copy a lane's [N, N] transition into the padded transpose Pt (the
 // block's threads share the work; the caller orders it before any read).
 template <typename T>
 __device__ __forceinline__ void load_transition(T* Pt, const T* P_l, int N) {
   for (int j = threadIdx.x; j < N * N; j += blockDim.x)
     Pt[(j % N) * kLotteryMaxN + j / N] = P_l[j];
+}
+
+// The lottery entries a block gathers from: the row starts of the rows it
+// owns (`st`, rows of `rs` ints per state, relative to the state's
+// entries at se + n ss, cf + n ss) and the entries.  A source is the
+// element d N + n of the flattened iterate; `packed` (cluster, staged)
+// means it was rewritten as (owner block << 16) | element within the
+// owner's rows.
+template <typename T>
+struct LotteryRows {
+  const int* st;
+  int rs;
+  const int* se;
+  const T* cf;
+  int ss;
+  bool packed;
+};
+
+// A cluster block's rows: [r0, r1) of the D.
+__device__ inline void lottery_cluster_span(int D, int rank, int* r0,
+                                            int* r1) {
+  const int R = lottery_cluster_rows(D);
+  *r0 = rank * R < D ? rank * R : D;
+  *r1 = *r0 + R < D ? *r0 + R : D;
+}
+
+// Stage a cluster block's rows of a lane's CSR (start [N, D+1], source
+// element and coefficient [N, 2D], global) into `s` when its entries,
+// counted here, fit `stage`; else point at the global entries.  Every
+// thread of the block must call it; the caller orders the writes (the
+// fixed point's first barrier does) before any read.
+template <typename T>
+__device__ LotteryRows<T> lottery_stage_rows(
+    const LotteryClusterSmem<T>& s, const int* st_g, const int* se_g,
+    const T* cf_g, int D, int N, int stage, int rank) {
+  int r0, r1;
+  lottery_cluster_span(D, rank, &r0, &r1);
+  const int R = lottery_cluster_rows(D);
+  const int rn = R * N;
+  const int D2 = 2 * D;
+  int total = 0;
+  for (int n = 0; n < N; ++n)
+    total += st_g[n * (D + 1) + r1] - st_g[n * (D + 1) + r0];
+  const bool staged = total <= stage;
+  int off = 0;
+  for (int n = 0; n < N; ++n) {
+    const int* stn = st_g + n * (D + 1);
+    const int k0 = stn[r0];
+    const int cnt = stn[r1] - k0;
+    for (int i = threadIdx.x; i <= r1 - r0; i += blockDim.x)
+      s.st[n * (R + 1) + i] = staged ? off + stn[r0 + i] - k0 : stn[r0 + i];
+    if (staged) {
+      for (int k = threadIdx.x; k < cnt; k += blockDim.x) {
+        const int e = se_g[n * D2 + k0 + k];
+        const int o = e / rn;
+        s.se[off + k] = (o << 16) | (e - o * rn);
+        s.cf[off + k] = cf_g[n * D2 + k0 + k];
+      }
+    }
+    off += cnt;
+  }
+  if (staged) return LotteryRows<T>{s.st, R + 1, s.se, s.cf, 0, true};
+  return LotteryRows<T>{s.st, R + 1, se_g, cf_g, D2, false};
 }
 
 template <typename T>
@@ -253,6 +380,234 @@ __device__ LotteryResult<T> lottery_fixed_point(
   if (best_out != best_d)   // own elements, written by this thread or
     for (int j = tid; j < DN; j += nthr)   // before the first barrier
       best_out[j] = best_d[j];
+  // the best residual, unless the last step was non-finite: then the
+  // status rebuilt from (iters, diff) must read NONFINITE
+  return LotteryResult<T>{it, isfinite(diff) ? best : diff};
+}
+
+
+// A cluster lane's fixed point, the same iteration and arithmetic as
+// lottery_fixed_point.  Every thread of every block of the cluster must
+// call it, and gets the same result.  N <= NB <= kLotteryMaxN, NB a
+// multiple of 4, blockDim.x a power of two.  `rows` is this block's
+// lottery (lottery_stage_rows), `Pt` its transition as load_transition
+// lays it out (16-byte aligned), `d0l` the lane's initial distribution
+// [D, N] in global memory; `iter3` holds the block's rows of the three
+// iterates [3, R N] and `best_d` their best one [R N], copied to the lane's
+// output `best_out` [D, N] at the end.  `red` is shared scratch of
+// lottery_cluster_red_elems(blockDim.x) elements.  `iter3` and `red` sit
+// at the same offsets in every block's shared memory.
+//
+// Four neighbouring threads share a target row (R = 125 rows at the fine
+// width, so one pass of 500 threads): thread h sums the sources of the
+// states n = h, h+4, ... (each from 0 in CSR order), shuffles hand every
+// thread all N sums, and thread h mixes the next states n2 = h, h+4, ...,
+// each over all states in order.
+template <typename T, int NB>
+__device__ LotteryResult<T> lottery_cluster_loop(
+    const LotteryRows<T> rows, const T* Pt, const T* d0l, T* iter3,
+    T* best_d, T* best_out, T* red, int D, int N, T tol, int max_iter,
+    int accel_every) {
+  constexpr int TPR = 4;                  // threads per target row
+  constexpr int SPT = NB / TPR;           // states each of them sums
+  static_assert(NB % TPR == 0, "NB a multiple of 4");
+  cg::cluster_group cl = cg::this_cluster();
+  const int* const st = rows.st;
+  const int* const se = rows.se;
+  const T* const cf = rows.cf;
+  const int rs = rows.rs, ss = rows.ss;
+  const bool packed = rows.packed;
+  const int tid = threadIdx.x;
+  const int nthr = blockDim.x;
+  const int nwarps = nthr >> 5;
+  const int wl = tid & 31;
+  const int DN = D * N;
+  const int rank = (int)cl.block_rank();
+  const int G = (int)cl.num_blocks();
+  int r0, r1;
+  lottery_cluster_span(D, rank, &r0, &r1);
+  const int nrows = r1 - r0;
+  const int own = nrows * N;               // elements this block writes
+  const int bn = lottery_cluster_rows(D) * N;   // an iterate's stride
+  T* const sum_part = red + 2 * nwarps;    // [3, nwarps]: Aitken sums
+  T* const slot = red + 5 * nwarps;        // [3]: read by the other blocks
+  // the pairwise sums' chunks: nt threads (a power of two, from the first
+  // nb blocks) own L contiguous leaves each of the DN, wherever they live
+  const int p = next_pow2(DN);
+  int gp = 1;
+  while (2 * gp <= G) gp <<= 1;
+  const int nt = p < nthr * gp ? p : nthr * gp;
+  const int ntb = nt < nthr ? nt : nthr;
+  const int nb = nt / ntb;
+  const int L = p / nt;
+  const int gtid = rank * nthr + tid;
+  const int lo = gtid * L;
+
+  // the peers' iterates, through distributed shared memory
+  __shared__ T* peer[kLotteryClusterMax];
+  if (tid < G) peer[tid] = cl.map_shared_rank(iter3, tid);
+  for (int l = tid; l < own; l += nthr) {
+    const T v = d0l[r0 * N + l];
+    iter3[l] = v; iter3[bn + l] = v; best_d[l] = v;
+  }
+  const T tiny = Limits<T>::tiny();
+  const T big = Limits<T>::big();
+  const T lam_max = T(0.995);
+  cl.sync();
+
+  int ic = 0, ip = 1, in = 2;              // current, previous, next
+  // element j of the flattened [D, N] iterate `ix`
+  auto elem = [&](int ix, int j) -> T {
+    const int o = j / bn;
+    return peer[o][ix * bn + j - o * bn];
+  };
+  // the cluster's subtrees of a pairwise sum, joined in rank order as
+  // the tree does (slot `q` of every block holds its block's subtree)
+  auto join = [&](T v, int q) -> T {
+    if (tid == 0) slot[q] = v;
+    cl.sync();
+    T u = wl < nb ? cl.map_shared_rank(slot, wl)[q] : T(0);
+    u = warp_tree(u, nb);
+    return __shfl_sync(0xffffffffu, u, 0);
+  };
+
+  T diff = big, best = big;
+  int it = 0, since = 0;
+  bool finite = true;
+  while (diff > tol && it < max_iter && since < kStallWindow && finite) {
+    const T* cur = iter3 + ic * bn;
+    T* nw = iter3 + in * bn;
+    const int cb = ic * bn;
+    T dl = T(0);
+    const int h = tid % TPR;
+    for (int base = 0; base < nrows; base += nthr / TPR) {
+      const int u = base + tid / TPR;
+      const int i = u < nrows ? u : nrows - 1;   // every lane shuffles
+      T mine[SPT];
+#pragma unroll
+      for (int q = 0; q < SPT; ++q) {
+        const int n = TPR * q + h;
+        T acc = T(0);
+        if (n < N) {
+          const int* sen = se + n * ss;
+          const T* cfn = cf + n * ss;
+          const int k1 = st[n * rs + i + 1];
+          for (int k = st[n * rs + i]; k < k1; ++k) {
+            // the source's owner block and its element there
+            const int e = sen[k];
+            int o, l;
+            if (packed) {
+              o = e >> 16;
+              l = e & 0xffff;
+            } else {
+              o = e / bn;
+              l = e - o * bn;
+            }
+            acc = acc + mul(peer[o][cb + l], cfn[k]);
+          }
+        }
+        mine[q] = acc;
+      }
+      T acc[NB];
+#pragma unroll
+      for (int q = 0; q < SPT; ++q)
+#pragma unroll
+        for (int g = 0; g < TPR; ++g)
+          acc[TPR * q + g] = __shfl_sync(0xffffffffu, mine[q], g, TPR);
+      if (u < nrows) {
+#pragma unroll
+        for (int q = 0; q < SPT; ++q) {
+          const int n2 = TPR * q + h;
+          if (n2 < N) {
+            const T* pr = Pt + n2 * kLotteryMaxN;   // P[., n2], aligned
+            T o = mul(acc[0], pr[0]);
+#pragma unroll
+            for (int n = 1; n < NB; ++n)
+              if (n < N) o = o + mul(acc[n], pr[n]);
+            const int l = i * N + n2;
+            nw[l] = o;
+            dl = nan_max(dl, (T)fabs(o - cur[l]));
+          }
+        }
+      }
+    }
+    // the step's one barrier: every block's warps' maxima are written,
+    // and the buffer alternates, so no thread still reads the one written
+    // here; then every thread reads them all
+    for (int o = 16; o > 0; o >>= 1)
+      dl = nan_max(dl, __shfl_xor_sync(0xffffffffu, dl, o));
+    T* mx = red + (it & 1) * nwarps;
+    if (wl == 0) mx[tid >> 5] = dl;
+    cl.sync();
+    T d = T(0);
+    for (int q = wl; q < G * nwarps; q += 32)
+      d = nan_max(d, cl.map_shared_rank(mx, q / nwarps)[q % nwarps]);
+    for (int o = 16; o > 0; o >>= 1)
+      d = nan_max(d, __shfl_xor_sync(0xffffffffu, d, o));
+    // best certified iterate: every step certifies `nw` (own elements;
+    // the barrier above ordered every write of them)
+    const bool improved = d < best;
+    if (improved)
+      for (int l = tid; l < own; l += nthr) best_d[l] = nw[l];
+    const bool accel = accel_every > 0 && ((it + 1) % accel_every) == 0;
+    if (accel && d <= tol) {
+      // converged on the plain step: the loop exits carrying it
+      const int oc = ic; ic = in; in = oc;
+    } else if (accel) {
+      // Aitken rate <d2,d1> / max(<d1,d1>, tiny), each dot the pairwise
+      // tree over the flattened [D, N] iterate
+      T num = T(0), den = T(0);
+      if (gtid < nt) {
+        num = chunk_pairwise<T>([&](int j) {
+          if (j >= DN) return T(0);
+          const T c = elem(ic, j);
+          return mul(elem(in, j) - c, c - elem(ip, j));
+        }, lo, L);
+        den = chunk_pairwise<T>([&](int j) {
+          if (j >= DN) return T(0);
+          const T d1 = elem(ic, j) - elem(ip, j);
+          return mul(d1, d1);
+        }, lo, L);
+      }
+      num = join(tree_combine(num, ntb, sum_part), 0);
+      den = join(tree_combine(den, ntb, sum_part + nwarps), 1);
+      T lam = num / nan_max(den, tiny);
+      lam = lam < T(0) ? T(0) : lam;    // clip keeps NaN
+      lam = lam > lam_max ? lam_max : lam;
+      const T fac = lam / (T(1) - lam);
+      auto extrapolated = [&](T n, T c) {
+        const T e = n + mul(fac, n - c);
+        return e < T(0) ? T(0) : e;
+      };
+      // the extrapolation's total, then each own element divided by it
+      // into the previous iterate's slots (every read of them ended at
+      // the barriers above)
+      T tot = T(0);
+      if (gtid < nt)
+        tot = chunk_pairwise<T>([&](int j) {
+          return j < DN ? extrapolated(elem(in, j), elem(ic, j)) : T(0);
+        }, lo, L);
+      tot = join(tree_combine(tot, ntb, sum_part + 2 * nwarps), 2);
+      T* pv = iter3 + ip * bn;
+      for (int l = tid; l < own; l += nthr)
+        pv[l] = extrapolated(nw[l], cur[l]) / tot;
+      cl.sync();
+      // dist <- extrapolation, prev <- new, old dist is free
+      const int oc = ic; ic = ip; ip = in; in = oc;
+    } else {
+      // dist <- new, prev <- dist, old prev is free
+      const int op = ip; ip = ic; ic = in; in = op;
+    }
+    best = (d != d || d < best) ? d : best;
+    since = improved ? 0 : since + 1;
+    diff = d;
+    ++it;
+    finite = isfinite(d);
+  }
+  T* out = best_out + r0 * N;
+  for (int l = tid; l < own; l += nthr) out[l] = best_d[l];
+  // no block leaves while a peer may still read its shared memory
+  cl.sync();
   // the best residual, unless the last step was non-finite: then the
   // status rebuilt from (iters, diff) must read NONFINITE
   return LotteryResult<T>{it, isfinite(diff) ? best : diff};

@@ -1,10 +1,13 @@
 // stationary_lottery_grid: the stationary wealth distribution of the
-// Young-lottery push-forward, one thread block per lane.
+// Young-lottery push-forward, one lane per thread block, or per
+// thread-block cluster where one block's shared memory cannot hold the
+// lane.
 //
 // Replaces: aiyagari_hark_tpu/ops/pallas_kernels.py, stationary_dense_pallas
 // (single lane, launched here with C = 1) and stationary_dense_pallas_grid
 // (one program instance per lane).  The loop is lottery_device.cuh's
-// lottery_fixed_point (household.accelerated_distribution_fixed_point).
+// lottery_fixed_point, or lottery_cluster_loop for a cluster lane
+// (household.accelerated_distribution_fixed_point).
 //
 // The TPU kernel iterates the dense operator S [N, D, D] (about 7 MB per
 // lane in f32 at D=500, N=7) resident in VMEM.  That is thirty times one
@@ -17,20 +20,36 @@
 // What bounds it on an H100: not bytes or FLOPs.  A lane moves about
 // 150 KB of lottery and iterates once, then runs thousands of dependent
 // steps of ~20 D N flops each; the bound is the latency of that chain.  So
-// the design keeps the chain in one SM: where the lane fits one block's
-// shared memory (the wrapper decides by the byte count below: 212 KB in
-// f64 at D=500, N=7), the kernel copies the lane's CSR and transition
-// there once and runs the whole loop on shared memory -- the three
-// iterates and, when it fits too, the best one.  A plain step is one
-// gather-and-mix pass and one barrier.  Otherwise (the fine width, D=1000
-// and N=15: 420 KB of CSR alone) or with `force_global`, the loop reads
-// the CSR where the wrapper built it and keeps the iterates in a global
-// scratch, with the same bits.  One block per lane fills 12 of 132 SMs on
-// the Table II sweep; spreading a lane over a cluster is later work.
+// the design keeps the chain on chip, in one of four layouts the wrapper
+// chooses by size alone (ops.kernels.stationary_lottery_grid_layout):
+//   shared (2), shared_best_in_output (1) -- the lane's CSR, transition and
+//       three iterates in one block's shared memory, copied there once
+//       (212 KB in f64 at D=500, N=7), and the best iterate too when it
+//       fits, else in the output.  A plain step is one gather-and-mix pass
+//       and one block barrier;
+//   cluster (3) -- the target rows split over a cluster of 8 blocks (the
+//       fine width, D=1000, N=15: 782 KB as one block, 68 KB of iterates
+//       and row starts per block of 8 in f64), each holding its rows'
+//       iterates in its own shared memory and its rows' lottery entries
+//       too when they fit the rest of its share (the split depends on the
+//       policy, so the block counts them on the device; otherwise it reads
+//       them where the wrapper built them).  A source another block owns is
+//       read through distributed shared memory; a plain step is one
+//       cluster barrier;
+//   global (0) -- one block, the CSR where the wrapper built it and the
+//       iterates in a global scratch, for what a cluster cannot hold
+//       either, and under force_global.
+// Every layout runs the same arithmetic in the same order, so all four
+// agree bitwise, and a lane's bits depend on neither C nor its
+// batchmates.
 //
-// Compile without --use_fast_math and with --fmad=false, so every
-// product-then-sum rounds as the plain PyTorch version rounds it.
+// Compile without --use_fast_math and with contraction on (--fmad=true):
+// every product the kernel writes is rounded on its own (common.cuh's
+// mul), so every product-then-sum rounds as the plain PyTorch version
+// rounds it.
 #include <cuda_runtime.h>
+
+#include <cooperative_groups.h>
 
 #include "common.cuh"
 #include "lottery_device.cuh"
@@ -43,12 +62,18 @@ static_assert((kThreads & (kThreads - 1)) == 0, "a power of two");
 
 // Layouts (the wrapper's choice): 0 global (only the transition in shared
 // memory); 1 shared, best iterate in the output; 2 shared, best iterate
-// too.  The kernel is compiled once per layout, so where the lane lives in
-// shared memory the compiler sees it and addresses it as such (32-bit
-// shared loads, no generic address path), and once per bound NB on the
-// labor states (8 or 16), so the loops over states unroll.
+// too; 3 cluster.  The kernel is compiled once per layout, so where the
+// lane lives in shared memory the compiler sees it and addresses it as
+// such (32-bit shared loads, no generic address path), and once per bound
+// NB on the labor states (8 or 16), so the loops over states unroll.
+constexpr int kCluster = 3;
+
+// Bytes of shared memory one block of a lane takes: `stage` lottery
+// entries a cluster block may stage.
 template <typename T>
-__host__ __device__ size_t shared_bytes(int D, int N, int layout) {
+__host__ __device__ size_t shared_bytes(int D, int N, int layout,
+                                        int stage) {
+  if (layout == kCluster) return ahtt::lottery_cluster_bytes<T>(D, N, stage);
   return layout ? ahtt::lottery_csr_bytes<T>(D, N)
                       + ahtt::lottery_iterate_bytes<T>(D, N, layout == 2)
                 : ahtt::lottery_p_bytes<T>();   // the padded P alone
@@ -63,42 +88,63 @@ stationary_lottery_kernel(const int* __restrict__ start,
                           const T* __restrict__ d0, T* __restrict__ best_out,
                           int* __restrict__ iters_out,
                           T* __restrict__ diff_out, T* __restrict__ scratch,
-                          int D, int N, T tol, int max_iter, int accel_every) {
+                          int D, int N, int stage, T tol, int max_iter,
+                          int accel_every) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ T red[ahtt::lottery_red_elems(kThreads)];
-  const int lane = blockIdx.x;
+  constexpr bool kCl = kLayout == kCluster;
+  constexpr int kRed = kCl ? ahtt::lottery_cluster_red_elems(kThreads)
+                           : ahtt::lottery_red_elems(kThreads);
+  __shared__ T red[kRed];
+  const int G = kCl ? ahtt::kLotteryClusterMax : 1;
+  const int lane = blockIdx.x / G;
   const int tid = threadIdx.x;
   const int DN = D * N;
   const int* st = start + (size_t)lane * N * (D + 1);
   const int* se = elem + (size_t)lane * N * 2 * D;
   const T* cf = coef + (size_t)lane * N * 2 * D;
   T* out = best_out + (size_t)lane * DN;
-  T* iter3;
-  T* best = out;
-  T* Pt;
-  if constexpr (kLayout == 0) {
-    Pt = reinterpret_cast<T*>(smem_raw);
-    iter3 = scratch + (size_t)lane * 3 * DN;
+  const T* d0l = d0 + (size_t)lane * DN;
+  ahtt::LotteryResult<T> r;
+  if constexpr (kCl) {
+    const int rank = (int)cooperative_groups::this_cluster().block_rank();
+    const ahtt::LotteryClusterSmem<T> s(smem_raw, D, N, stage);
+    const ahtt::LotteryRows<T> rows =
+        ahtt::lottery_stage_rows(s, st, se, cf, D, N, stage, rank);
+    ahtt::load_transition(s.Pt, P_g + (size_t)lane * N * N, N);
+    const int rn = ahtt::lottery_cluster_rows(D) * N;
+    r = ahtt::lottery_cluster_loop<T, NB>(rows, s.Pt, d0l, s.it,
+                                          s.it + 3 * rn, out, red, D, N, tol,
+                                          max_iter, accel_every);
+    if (rank != 0) return;
   } else {
-    // the lane's lottery into shared memory, once; the fixed point's
-    // first barrier orders these writes before any read
-    const ahtt::LotteryCsr<T> s(smem_raw, D, N);
-    for (int j = tid; j < N * (D + 1); j += kThreads) s.st[j] = st[j];
-    for (int j = tid; j < 2 * DN; j += kThreads) {
-      s.se[j] = se[j];
-      s.cf[j] = cf[j];
+    T* iter3;
+    T* best = out;
+    T* Pt;
+    if constexpr (kLayout == 0) {
+      Pt = reinterpret_cast<T*>(smem_raw);
+      iter3 = scratch + (size_t)lane * 3 * DN;
+    } else {
+      // the lane's lottery into shared memory, once; the fixed point's
+      // first barrier orders these writes before any read
+      const ahtt::LotteryCsr<T> s(smem_raw, D, N);
+      for (int j = tid; j < N * (D + 1); j += kThreads) s.st[j] = st[j];
+      for (int j = tid; j < 2 * DN; j += kThreads) {
+        s.se[j] = se[j];
+        s.cf[j] = cf[j];
+      }
+      st = s.st;
+      se = s.se;
+      cf = s.cf;
+      Pt = s.Pt;
+      iter3 =
+          reinterpret_cast<T*>(smem_raw + ahtt::lottery_csr_bytes<T>(D, N));
+      if constexpr (kLayout == 2) best = iter3 + 3 * DN;
     }
-    st = s.st;
-    se = s.se;
-    cf = s.cf;
-    Pt = s.Pt;
-    iter3 = reinterpret_cast<T*>(smem_raw + ahtt::lottery_csr_bytes<T>(D, N));
-    if constexpr (kLayout == 2) best = iter3 + 3 * DN;
+    ahtt::load_transition(Pt, P_g + (size_t)lane * N * N, N);
+    r = ahtt::lottery_fixed_point<T, NB>(st, se, cf, Pt, d0l, iter3, best,
+                                         out, red, D, N, tol, max_iter,
+                                         accel_every);
   }
-  ahtt::load_transition(Pt, P_g + (size_t)lane * N * N, N);
-  const ahtt::LotteryResult<T> r = ahtt::lottery_fixed_point<T, NB>(
-      st, se, cf, Pt, d0 + (size_t)lane * DN, iter3, best, out, red, D, N,
-      tol, max_iter, accel_every);
   if (tid == 0) {
     iters_out[lane] = r.iters;
     diff_out[lane] = r.diff;
@@ -108,20 +154,33 @@ stationary_lottery_kernel(const int* __restrict__ start,
 template <typename T, int kLayout, int NB>
 int launch_layout(const void* start, const void* elem, const void* coef,
                   const void* P, const void* d0, void* best, void* iters,
-                  void* diff, void* scratch, int C, int D, int N, double tol,
-                  int max_iter, int accel_every, void* stream) {
-  const size_t smem = shared_bytes<T>(D, N, kLayout);
+                  void* diff, void* scratch, int stage, int C, int D, int N,
+                  double tol, int max_iter, int accel_every, void* stream) {
+  const size_t smem = shared_bytes<T>(D, N, kLayout, stage);
+  auto kern = stationary_lottery_kernel<T, kLayout, NB>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        stationary_lottery_kernel<T, kLayout, NB>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  stationary_lottery_kernel<T, kLayout, NB>
-      <<<C, kThreads, smem, (cudaStream_t)stream>>>(
-          (const int*)start, (const int*)elem, (const T*)coef, (const T*)P,
-          (const T*)d0, (T*)best, (int*)iters, (T*)diff, (T*)scratch, D, N,
-          (T)tol, max_iter, accel_every);
+  const int G = kLayout == kCluster ? ahtt::kLotteryClusterMax : 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(C * G));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)G;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = kLayout == kCluster ? 1 : 0;
+  cudaError_t e = cudaLaunchKernelEx(
+      &cfg, kern, (const int*)start, (const int*)elem, (const T*)coef,
+      (const T*)P, (const T*)d0, (T*)best, (int*)iters, (T*)diff,
+      (T*)scratch, D, N, stage, (T)tol, max_iter, accel_every);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
@@ -130,21 +189,23 @@ int launch_layout(const void* start, const void* elem, const void* coef,
 template <typename T>
 int launch(const void* start, const void* elem, const void* coef,
            const void* P, const void* d0, void* best, void* iters, void* diff,
-           void* scratch, int layout, int C, int D, int N, double tol,
-           int max_iter, int accel_every, void* stream) {
-  if (N < 1 || N > kMaxN || layout < 0 || layout > 2
+           void* scratch, int layout, int stage, int C, int D, int N,
+           double tol, int max_iter, int accel_every, void* stream) {
+  if (N < 1 || N > kMaxN || D < 1 || layout < 0 || layout > kCluster
+      || stage < 0 || (layout != kCluster && stage != 0)
       || ahtt::next_pow2(D * N) / kThreads > (1 << ahtt::kChunkLevels))
     return (int)cudaErrorInvalidValue;
   using Fn = int (*)(const void*, const void*, const void*, const void*,
                      const void*, void*, void*, void*, void*, int, int, int,
-                     double, int, int, void*);
-  constexpr Fn fns[2][3] = {
-      {launch_layout<T, 0, 8>, launch_layout<T, 1, 8>, launch_layout<T, 2, 8>},
+                     int, double, int, int, void*);
+  constexpr Fn fns[2][4] = {
+      {launch_layout<T, 0, 8>, launch_layout<T, 1, 8>, launch_layout<T, 2, 8>,
+       launch_layout<T, 3, 8>},
       {launch_layout<T, 0, 16>, launch_layout<T, 1, 16>,
-       launch_layout<T, 2, 16>}};
+       launch_layout<T, 2, 16>, launch_layout<T, 3, 16>}};
   return fns[N > 8][layout](start, elem, coef, P, d0, best, iters, diff,
-                            scratch, C, D, N, tol, max_iter, accel_every,
-                            stream);
+                            scratch, stage, C, D, N, tol, max_iter,
+                            accel_every, stream);
 }
 
 }  // namespace
@@ -157,8 +218,24 @@ int stationary_lottery_grid_max_states() { return kMaxN; }
 // iterate: the wrapper picks the layout from these.
 unsigned long long stationary_lottery_grid_shared_bytes(int D, int N,
                                                         int f64, int best) {
-  return f64 ? shared_bytes<double>(D, N, best ? 2 : 1)
-             : shared_bytes<float>(D, N, best ? 2 : 1);
+  return f64 ? shared_bytes<double>(D, N, best ? 2 : 1, 0)
+             : shared_bytes<float>(D, N, best ? 2 : 1, 0);
+}
+
+// Bytes of shared memory each block of a cluster lane takes with room for
+// `stage` staged lottery entries (stage = 0: the part that must fit), or
+// ~0 where the kernel takes no such lane (N outside 1..16).
+unsigned long long stationary_lottery_grid_cluster_bytes(int D, int N,
+                                                         int f64,
+                                                         int stage) {
+  if (N < 1 || N > kMaxN || D < 1 || stage < 0) return ~0ull;
+  return f64 ? shared_bytes<double>(D, N, kCluster, stage)
+             : shared_bytes<float>(D, N, kCluster, stage);
+}
+
+// Blocks of a cluster lane.
+int stationary_lottery_grid_cluster_blocks() {
+  return ahtt::kLotteryClusterMax;
 }
 
 // Elements of T of one lane's global scratch (the global layout).
@@ -166,24 +243,19 @@ unsigned long long stationary_lottery_grid_scratch_elems(int D, int N) {
   return 3ull * D * N;
 }
 
-int stationary_lottery_grid_f32(const void* start, const void* elem,
-                                const void* coef, const void* P,
-                                const void* d0, void* best, void* iters,
-                                void* diff, void* scratch, int layout, int C,
-                                int D, int N, double tol, int max_iter,
-                                int accel_every, void* stream) {
-  return launch<float>(start, elem, coef, P, d0, best, iters, diff, scratch,
-                       layout, C, D, N, tol, max_iter, accel_every, stream);
-}
+#define LOTTERY_ENTRY(NAME, T)                                               \
+  int NAME(const void* start, const void* elem, const void* coef,            \
+           const void* P, const void* d0, void* best, void* iters,           \
+           void* diff, void* scratch, int layout, int stage, int C, int D,   \
+           int N, double tol, int max_iter, int accel_every, void* stream) { \
+    return launch<T>(start, elem, coef, P, d0, best, iters, diff, scratch,   \
+                     layout, stage, C, D, N, tol, max_iter, accel_every,     \
+                     stream);                                                \
+  }
 
-int stationary_lottery_grid_f64(const void* start, const void* elem,
-                                const void* coef, const void* P,
-                                const void* d0, void* best, void* iters,
-                                void* diff, void* scratch, int layout, int C,
-                                int D, int N, double tol, int max_iter,
-                                int accel_every, void* stream) {
-  return launch<double>(start, elem, coef, P, d0, best, iters, diff, scratch,
-                        layout, C, D, N, tol, max_iter, accel_every, stream);
-}
+LOTTERY_ENTRY(stationary_lottery_grid_f32, float)
+LOTTERY_ENTRY(stationary_lottery_grid_f64, double)
+
+#undef LOTTERY_ENTRY
 
 }  // extern "C"

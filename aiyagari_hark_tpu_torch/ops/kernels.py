@@ -57,8 +57,10 @@ MAX_SHARED_BYTES = 232448
 MAX_WORKSPACE_SHARED_BYTES = MAX_SHARED_BYTES - 1024
 # The distribution kernels' layouts, by the code the kernels take: the
 # whole lane in global memory; the lottery and the iterates in shared
-# memory, the best iterate in the output; all of it in shared memory.
-LAYOUTS = ("global", "shared_best_in_output", "shared")
+# memory, the best iterate in the output; all of it in shared memory; a
+# thread-block cluster, the target rows split over its blocks' shared
+# memory (``stationary_lottery_grid`` only).
+LAYOUTS = ("global", "shared_best_in_output", "shared", "cluster")
 # The EGM kernel's layouts, by the code it takes: one block on a global
 # workspace; one block, all in shared memory; a thread-block cluster, the
 # labor states split over its blocks' shared memory.
@@ -141,12 +143,16 @@ def _bind(lib, name: str) -> None:
     else:
         for sfx in ("f32", "f64"):
             fn = getattr(lib, f"stationary_lottery_grid_{sfx}")
-            fn.argtypes = [vp] * 9 + [ci] * 4 + [cd, ci, ci, vp]
+            fn.argtypes = [vp] * 9 + [ci] * 5 + [cd, ci, ci, vp]
             fn.restype = ci
-        lib.stationary_lottery_grid_max_states.argtypes = []
-        lib.stationary_lottery_grid_max_states.restype = ci
-        lib.stationary_lottery_grid_shared_bytes.argtypes = [ci] * 4
-        lib.stationary_lottery_grid_shared_bytes.restype = ull
+        for fn in (lib.stationary_lottery_grid_max_states,
+                   lib.stationary_lottery_grid_cluster_blocks):
+            fn.argtypes = []
+            fn.restype = ci
+        for fn in (lib.stationary_lottery_grid_shared_bytes,
+                   lib.stationary_lottery_grid_cluster_bytes):
+            fn.argtypes = [ci] * 4
+            fn.restype = ull
         lib.stationary_lottery_grid_scratch_elems.argtypes = [ci, ci]
         lib.stationary_lottery_grid_scratch_elems.restype = ull
 
@@ -234,15 +240,33 @@ def _workspace(nbytes: int, C: int, use: bool, dev):
     return torch.empty((max(C, 1), row), dtype=torch.uint8, device=dev)
 
 
-def _lottery_layout(nbytes, force_global: bool) -> int:
+def _lottery_layout(nbytes, force_global: bool,
+                    cluster_bytes: int | None = None) -> int:
     """Index into ``LAYOUTS`` of a distribution kernel's layout, by size
     alone (never after a failure): ``nbytes(best)`` is a lane's
-    shared-memory workspace with (1) or without (0) the best iterate."""
+    shared-memory workspace in one block with (1) or without (0) the best
+    iterate; ``cluster_bytes`` what each block of a cluster lane must hold
+    (its rows' iterates and row starts; None where the kernel has no
+    cluster layout).  The cluster is taken only where one block cannot
+    hold the lane."""
     if force_global:
         return 0
     if nbytes(1) <= MAX_WORKSPACE_SHARED_BYTES:
         return 2
-    return 1 if nbytes(0) <= MAX_WORKSPACE_SHARED_BYTES else 0
+    if nbytes(0) <= MAX_WORKSPACE_SHARED_BYTES:
+        return 1
+    if cluster_bytes is not None \
+            and cluster_bytes <= MAX_WORKSPACE_SHARED_BYTES:
+        return 3
+    return 0
+
+
+def _lottery_stage(fixed_bytes: int, D: int, N: int, itemsize: int) -> int:
+    """Lottery entries a cluster block may stage in its shared memory: as
+    many of the lane's 2 D N (each a coefficient and an int source) as
+    the rest of the block's share holds beyond ``fixed_bytes``."""
+    room = (MAX_WORKSPACE_SHARED_BYTES - fixed_bytes) // (itemsize + 4)
+    return max(0, min(2 * D * N, room))
 
 
 def _egm_layout(shared_bytes: int, cluster_bytes: int,
@@ -487,18 +511,28 @@ def lottery_gather(idx: torch.Tensor, weight: torch.Tensor):
     return src_pad, coef_pad
 
 
-def push_forward_lanes(dist, src_pad, coef_pad, P):
+def push_forward_lanes(dist, src_pad, coef_pad, P, tail=None):
     """One push-forward step for every lane: each target sums its lottery
     shares from 0 left to right in ``lottery_csr`` order -- the kernel's
     order, on every device (a padding slot adds +0.0, which changes no
     bit) -- then the labor states mix in state order.  ``dist``
     [C, D, N], ``(src_pad, coef_pad)`` from ``lottery_gather``, ``P``
-    [C, N, N]."""
+    [C, N, N].  ``tail`` = (columns [H], source [T, H], coefficient
+    [T, H]): further slots that only those targets take, summed after
+    the others in the same order."""
     C, D, N = dist.shape
-    vals = dist.reshape(-1)[src_pad] * coef_pad
+    flat = dist.reshape(-1)
+    vals = flat[src_pad] * coef_pad
     moved = torch.zeros_like(vals[0])
     for k in range(vals.shape[0]):
         moved = moved + vals[k]
+    if tail is not None:
+        cols, tsrc, tcoef = tail
+        tvals = flat[tsrc] * tcoef
+        acc = moved[cols]
+        for k in range(tvals.shape[0]):
+            acc = acc + tvals[k]
+        moved = moved.index_put((cols,), acc)
     moved = moved.reshape(C, D, N)
     out = moved[:, :, 0, None] * P[:, None, 0, :]
     for n in range(1, N):
@@ -506,11 +540,26 @@ def push_forward_lanes(dist, src_pad, coef_pad, P):
     return out
 
 
+# Lottery slots every target takes in the plain push; the few targets with
+# more sources (near the borrowing limit: 78 at the fine width, where most
+# take 2-4) take the rest alone.
+PUSH_HEAD_SLOTS = 8
+
+
 def lottery_push(idx, weight, P):
     """The distribution kernel's step on every lane's [C, D, N] iterate:
-    ``push_forward_lanes`` on the lottery ``(idx, weight)`` [C, D, N]."""
+    ``push_forward_lanes`` on the lottery ``(idx, weight)`` [C, D, N], its
+    slots past ``PUSH_HEAD_SLOTS`` taken only by the targets with more
+    sources (the same sums in the same order as the padded gather)."""
     src, coef = lottery_gather(idx, weight)
-    return lambda d: push_forward_lanes(d, src, coef, P)
+    if src.shape[0] <= PUSH_HEAD_SLOTS:
+        return lambda d: push_forward_lanes(d, src, coef, P)
+    start, _, _ = lottery_csr(idx, weight)
+    deg = (start[..., 1:] - start[..., :-1]).transpose(1, 2).reshape(-1)
+    k0 = PUSH_HEAD_SLOTS
+    cols = torch.nonzero(deg > k0).flatten()
+    tail = (cols, src[k0:, cols], coef[k0:, cols])
+    return lambda d: push_forward_lanes(d, src[:k0], coef[:k0], P, tail)
 
 
 def stationary_lottery_grid_plain(idx, weight, P, dist0, tol: float,
@@ -530,26 +579,51 @@ def stationary_lottery_grid_plain(idx, weight, P, dist0, tol: float,
     return best_dist, it, torch.where(torch.isfinite(last), best, last)
 
 
-def _stationary_layout(D: int, N: int, dtype, force_global: bool) -> int:
+def _lottery_cluster_cut(lib, D: int, N: int, dtype) -> tuple[int, int]:
+    """(bytes each block of a [D, N] cluster lane must hold, lottery
+    entries each may stage)."""
+    f64 = int(dtype == torch.float64)
+    fixed = int(lib.stationary_lottery_grid_cluster_bytes(D, N, f64, 0))
+    return fixed, _lottery_stage(fixed, D, N, torch.finfo(dtype).bits // 8)
+
+
+def _stationary_layout(D: int, N: int, dtype,
+                       force_global: bool) -> tuple[int, int]:
+    """(index into ``LAYOUTS``, lottery entries a cluster block may
+    stage: 0 outside the cluster layout)."""
     lib = _library("stationary_lottery_grid")
     f64 = int(dtype == torch.float64)
-    return _lottery_layout(
+    fixed, stage = _lottery_cluster_cut(lib, D, N, dtype)
+    layout = _lottery_layout(
         lambda best: int(lib.stationary_lottery_grid_shared_bytes(
-            D, N, f64, best)), force_global)
+            D, N, f64, best)), force_global, fixed)
+    return layout, stage if layout == 3 else 0
 
 
 def stationary_lottery_grid_layout(D: int, N: int, dtype,
                                    force_global: bool = False) -> str:
     """The layout ``stationary_lottery_grid`` runs a [D, N] lane in on the
     card (an entry of ``LAYOUTS``)."""
-    return LAYOUTS[_stationary_layout(D, N, dtype, force_global)]
+    return LAYOUTS[_stationary_layout(D, N, dtype, force_global)[0]]
+
+
+def stationary_lottery_grid_cluster(D: int, N: int, dtype) -> dict:
+    """How a [D, N] lane's cluster is cut, from the library: its blocks,
+    the bytes each must hold (``fixed_bytes``), the lottery entries each
+    may stage and the shared memory each then takes (``block_bytes``)."""
+    lib = _library("stationary_lottery_grid")
+    fixed, stage = _lottery_cluster_cut(lib, D, N, dtype)
+    return dict(blocks=int(lib.stationary_lottery_grid_cluster_blocks()),
+                fixed_bytes=fixed, stage_entries=stage,
+                block_bytes=int(lib.stationary_lottery_grid_cluster_bytes(
+                    D, N, int(dtype == torch.float64), stage)))
 
 
 def stationary_lottery_grid(idx, weight, P, dist0, tol: float,
                             max_iter: int = 20000, accel_every: int = 64,
                             force_global: bool = False):
     """Batched stationary distributions of the Young-lottery operator,
-    one lane per thread block.
+    one lane per thread block or per thread-block cluster.
 
     Args: ``idx`` [C, D, N] left-neighbour index and ``weight`` [C, D, N]
     right-neighbour share (``WealthTransition``), ``P`` [C, N, N],
@@ -557,10 +631,13 @@ def stationary_lottery_grid(idx, weight, P, dist0, tol: float,
     diff [C]); the status is rebuilt from (iters, diff).
 
     A lane's lottery and iterates live in shared memory when they fit one
-    block's share (the best iterate too when it fits), else in global
-    memory; the arithmetic and its order are the same, so the layouts
-    agree bitwise.  ``force_global`` takes the global layout at any size
-    (a check of that claim)."""
+    block's share (the best iterate too when it fits); else, its target
+    rows split over a cluster of 8 blocks, each holding its rows'
+    iterates (and their lottery entries when they fit) in its own shared
+    memory; else in global memory (``stationary_lottery_grid_layout``).
+    The arithmetic and its order are the same, so the layouts agree
+    bitwise.  ``force_global`` takes the global layout at any size (a
+    check of that claim)."""
     dev, dt = dist0.device, dist0.dtype
     C, D, N = dist0.shape
     if idx.shape != dist0.shape or weight.shape != dist0.shape \
@@ -593,7 +670,7 @@ def stationary_lottery_grid(idx, weight, P, dist0, tol: float,
     diff = torch.empty((C,), dtype=dt, device=dev)
     if C == 0:
         return dist, iters, diff
-    layout = _stationary_layout(D, N, dt, force_global)
+    layout, stage = _stationary_layout(D, N, dt, force_global)
     per_lane = (int(lib.stationary_lottery_grid_scratch_elems(D, N))
                 if layout == 0 else 0)
     scratch = torch.empty((C, per_lane), dtype=dt, device=dev)
@@ -601,11 +678,13 @@ def stationary_lottery_grid(idx, weight, P, dist0, tol: float,
     fn = (lib.stationary_lottery_grid_f64 if f64
           else lib.stationary_lottery_grid_f32)
     rc = fn(_ptr(start), _ptr(elem), _ptr(coef), _ptr(P), _ptr(dist0),
-            _ptr(dist), _ptr(iters), _ptr(diff), _ptr(scratch), layout, C,
-            D, N, float(tol), int(max_iter), int(accel_every), _stream(dev))
+            _ptr(dist), _ptr(iters), _ptr(diff), _ptr(scratch), layout,
+            stage, C, D, N, float(tol), int(max_iter), int(accel_every),
+            _stream(dev))
     if rc != 0:
         raise RuntimeError(f"stationary_lottery_grid: kernel launch failed "
-                           f"with CUDA error {rc}")
+                           f"with CUDA error {rc} ({LAYOUTS[layout]} "
+                           f"layout)")
     _count_launch("stationary_lottery_grid")
     return dist, iters, diff
 

@@ -38,12 +38,18 @@ Phases (each raises on failure, and the script then exits non-zero):
      (1 bp); each with its launch set checked;
   6. where the float64 sweeps' time goes (torch.profiler), reference and
      fused;
-  7. the fine configuration (A=1000, N=15, D=1000, float64): the EGM
-     kernel in its cluster layout (the lane does not fit one block's
-     shared memory) bitwise equal to its plain version, to its global
-     layout and, at C=4, to four C=1 launches, both layouts timed in
-     turns; the distribution kernel in its global layout, bitwise equal to
-     its plain version;
+  7. the fine configuration (BASELINE.json config 2: A=1000, N=15,
+     D=1000): the EGM kernel (float64) and the distribution kernel
+     (float64 and float32) in their cluster layouts (the lane does not fit
+     one block's shared memory), each bitwise equal to its plain version,
+     to its global layout and, at C=4 (four prices), to four C=1 launches,
+     both layouts timed in turns; then solve_calibration_lean(
+     **fine_grid_kwargs()) on the card in float64 (r* within 1e-6 pct of
+     tests/data/torch_fine_golden.json, the JAX package's, trips, EGM and
+     distribution steps equal, CONVERGED) and float32 (1 bp, trips
+     equal), and bench.py's four fine lanes (CRRA 1, rho 0-0.9) as one
+     solve_cells_lean batch, each lane bitwise its C=1 solve and within
+     1e-6 pct of the golden; one launch of each reference kernel a trip;
   8. one cell with the full equilibrium objects (the single-lane entry:
      every launch has C=1), reference, fused and precision="mixed",
      launch counters advanced; one lean cell by root_method="illinois"
@@ -914,14 +920,14 @@ def phase_profile(dev, kernel="reference"):
 
 
 def phase_fine(dev):
-    """The fine configuration (A=1000, N=15, D=1000), float64.  The EGM
-    lane (851 KB as one block) must take the cluster layout; on one cell
-    it matches its plain version bitwise and its global layout
+    """The fine configuration's kernels (A=1000, N=15, D=1000).  The EGM
+    lane (851 KB as one block, float64) must take the cluster layout; on
+    one cell it matches its plain version bitwise and its global layout
     (force_global) bitwise, both layouts timed in turns; at C=4 (four
     prices) one launch equals four C=1 launches bitwise.  The distribution
-    kernel, on that policy, takes its global layout (420 KB of lottery
-    alone) and matches its plain version bitwise, both on the card.
-    Returns the EGM record."""
+    kernel, on those policies, in float64 and float32:
+    ``fine_lottery_check``.  The fused kernel: ``fine_fused_check``.
+    Returns the EGM record, the two lottery records and the fused one."""
     from aiyagari_hark_tpu_torch.models import firm
     from aiyagari_hark_tpu_torch.models import household as H
     from aiyagari_hark_tpu_torch.ops import kernels as K
@@ -932,7 +938,7 @@ def phase_fine(dev):
                                 labor_ar=0.6, dtype=dt, device=dev)
     model1 = H.stack_models([base])
     model = H.stack_models([base] * 4)
-    r = torch.tensor([0.04, 0.03, 0.035, 0.045], dtype=dt, device=dev)
+    r = torch.tensor(FINE_RATES, dtype=dt, device=dev)
     R, W = 1.0 + r, firm.wage_rate(firm.k_to_l_from_r(r, 0.36, 0.08), 0.36)
     p0 = H.initial_policy(model)
     args4 = (p0.m_knots, p0.c_knots, model.a_grid, model.labor_levels,
@@ -983,31 +989,246 @@ def phase_fine(dev):
     egm["bound_ms"], egm["bound_by"] = egm_bound(dt, 1, model1, eit)
     log("fine_egm", **egm)
 
-    trans = H.wealth_transition(H.HouseholdPolicy(m, c), R[:1], W[:1],
-                                model1)
-    dargs = (trans.idx, trans.weight, model1.transition,
-             H.initial_distribution(model1), 1e-11)
-    dlayout = K.stationary_lottery_grid_layout(1000, N, dt)
-    if dlayout != "global":
-        raise AssertionError(f"the fine distribution lane takes the "
-                             f"{dlayout} layout: this phase would not test "
-                             f"the global one")
-    kd, kit, kdiff = K.stationary_lottery_grid(*dargs)
+    lottery = [fine_lottery_check(dev, dt, four if dt == torch.float64
+                                  else None) for dt in FINE_DTYPES]
+    return egm, lottery, fine_fused_check(dev)
+
+
+# Phase 7: the fine configuration's lottery lanes and equilibria.
+FINE_GOLDEN = os.path.join(HERE, "tests", "data", "torch_fine_golden.json")
+FINE_DTYPES = (torch.float64, torch.float32)
+FINE_RATES = (0.04, 0.03, 0.035, 0.045)
+# r* against the JAX golden: ROADMAP's slice rule in float64, 1 bp in
+# float32 (the JAX accelerator path's contract)
+FINE_RSTAR_PCT = {torch.float64: 1e-6, torch.float32: 1e-2}
+
+
+def _fine_lanes(dev, dt, pol=None, rates=FINE_RATES):
+    """The fine model (rho 0.6) as one lane per rate of ``rates``, their
+    prices and EGM policies (``pol``: phase 7's C=4 knots, else solved
+    here)."""
+    from aiyagari_hark_tpu_torch.models import firm
+    from aiyagari_hark_tpu_torch.models import household as H
+    from aiyagari_hark_tpu_torch.ops import kernels as K
+    from aiyagari_hark_tpu_torch.utils.config import fine_grid_kwargs
+
+    kw = fine_grid_kwargs()
+    crra = kw.pop("crra")
+    base = H.build_simple_model(dtype=dt, device=dev, **kw)
+    model = H.stack_models([base] * len(rates))
+    r = torch.tensor(rates, dtype=dt, device=dev)
+    R, W = 1.0 + r, firm.wage_rate(firm.k_to_l_from_r(r, 0.36, 0.08), 0.36)
+    if pol is None:
+        p0 = H.initial_policy(model)
+        pol = K.egm_policy_grid(p0.m_knots, p0.c_knots, model.a_grid,
+                                model.labor_levels, model.transition,
+                                H._scalars(R, W, model, 0.96, crra),
+                                INNER_TOL[dt][0])
+    return model, R, W, H.HouseholdPolicy(pol[0], pol[1])
+
+
+def fine_lottery_check(dev, dt, pol=None):
+    """The lottery kernel at the fine width (D=1000, N=15) on the policies
+    of FINE_RATES: it takes the cluster layout; at r = 4 % (C=1) it is
+    bitwise its plain version (run once) and its global layout, both
+    layouts timed in turns; one C=4 launch is bitwise four C=1 launches.
+    Returns the record."""
+    from aiyagari_hark_tpu_torch.models import household as H
+    from aiyagari_hark_tpu_torch.ops import kernels as K
+
+    model, R, W, pol = _fine_lanes(dev, dt, pol)
+    dist_tol = INNER_TOL[dt][1]
+    trans = H.wealth_transition(pol, R, W, model)
+    args4 = (trans.idx, trans.weight, model.transition,
+             H.initial_distribution(model))
+    args = tuple(t[:1] for t in args4) + (dist_tol,)
+    D, N = args4[3].shape[1:]
+    layout = K.stationary_lottery_grid_layout(D, N, dt)
+    if layout != "cluster":
+        raise AssertionError(f"the fine {dt} distribution lane takes the "
+                             f"{layout} layout, not the cluster one")
+    out = K.stationary_lottery_grid(*args)
     t0 = time.perf_counter()
-    pd, pit, pdiff = K.stationary_lottery_grid_plain(*dargs)
+    plain = K.stationary_lottery_grid_plain(*args)
     torch.cuda.synchronize()
-    dist_plain_ms = 1e3 * (time.perf_counter() - t0)
-    if not torch.equal(kit, pit):
-        raise AssertionError(f"fine stationary_lottery_grid step counts "
-                             f"{kit.tolist()} vs plain {pit.tolist()}")
-    if not (torch.equal(kd, pd) and torch.equal(kdiff, pdiff)):
-        raise AssertionError("fine stationary_lottery_grid is not bitwise "
-                             "equal to its plain version")
-    log("fine", stationary_lottery_grid="ran", layout=dlayout,
-        iters=kit.tolist(), bitwise_vs_plain=True,
-        dist_plain_ms=dist_plain_ms,
-        kernel_ms=cuda_ms(lambda: K.stationary_lottery_grid(*dargs), reps=2))
-    return egm
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    err = close(out[0], plain[0], dt, dist_tol)
+    if not all(torch.equal(x, y) for x, y in zip(out, plain)):
+        raise AssertionError(f"fine {dt} stationary_lottery_grid (cluster) "
+                             f"is not bitwise equal to its plain version: "
+                             f"steps {out[1].tolist()} vs "
+                             f"{plain[1].tolist()}, max abs error {err}")
+    if not all(torch.equal(x, y) for x, y in zip(
+            K.stationary_lottery_grid(*args, force_global=True), out)):
+        raise AssertionError(f"fine {dt} stationary_lottery_grid: the "
+                             f"cluster layout is not bitwise equal to the "
+                             f"global one")
+    four = K.stationary_lottery_grid(*args4, dist_tol)
+    for lane in range(len(FINE_RATES)):
+        one = K.stationary_lottery_grid(
+            *(t[lane:lane + 1] for t in args4), dist_tol)
+        if not all(torch.equal(x[0], y[lane]) for x, y in zip(one, four)):
+            raise AssertionError(f"fine {dt} stationary_lottery_grid lane "
+                                 f"{lane}: C=1 is not bitwise equal to C=4")
+    steps = int(out[1][0])
+    rec = dict(dtype=str(dt), D=D, N=N, layout=layout,
+               cluster=K.stationary_lottery_grid_cluster(D, N, dt),
+               iters=out[1].tolist(), c4_iters=four[1].tolist(),
+               max_abs_err=err, bitwise_vs_plain=True,
+               bitwise_global_cluster=True, bitwise_c1_c4=True,
+               plain_ms=plain_ms)
+    rec["kernel_ms"], rec["global_ms"] = paired_ms(
+        lambda: K.stationary_lottery_grid(*args),
+        lambda: K.stationary_lottery_grid(*args, force_global=True), reps=3)
+    rec["ns_per_step"] = 1e6 * rec["kernel_ms"] / steps
+    rec["global_ns_per_step"] = 1e6 * rec["global_ms"] / steps
+    rec["c4_ms"] = cuda_ms(lambda: K.stationary_lottery_grid(
+        *args4, dist_tol), reps=3)
+    rec["bound_ms"], rec["bound_by"] = dist_bound(dt, 1, model, out[1])
+    rec["c4_bound_ms"] = dist_bound(dt, len(FINE_RATES), model, four[1])[0]
+    log("fine_lottery", **rec)
+    return rec
+
+
+def fine_fused_check(dev):
+    """The fused kernel at the fine width (float64, r = 4 %, C=1): one
+    block on a global workspace (it has no cluster layout), bitwise the
+    reference kernels' chain on the card (the EGM kernel, wealth_transition,
+    the lottery kernel, both in their cluster layouts); its time, its time
+    with no distribution step, and its bound.  Returns the record."""
+    from aiyagari_hark_tpu_torch.models import household as H
+    from aiyagari_hark_tpu_torch.ops import kernels as K
+
+    dt = torch.float64
+    egm_tol, dist_tol = INNER_TOL[dt]
+    model, R, W, pol = _fine_lanes(dev, dt, rates=FINE_RATES[:1])
+    trans = H.wealth_transition(pol, R, W, model)
+    d0 = H.initial_distribution(model)
+    dist, dit, ddiff = K.stationary_lottery_grid(
+        trans.idx, trans.weight, model.transition, d0, dist_tol)
+    p0 = H.initial_policy(model)
+    args = (p0.m_knots, p0.c_knots, model.a_grid, model.dist_grid,
+            model.labor_levels, model.transition,
+            H._scalars(R, W, model, 0.96, 3.0),
+            torch.zeros_like(model.labor_levels), d0)
+    kw = dict(tol=egm_tol, dist_tol=dist_tol)
+    out = K.fused_cell_grid(*args, **kw)
+    if not all(torch.equal(x, y) for x, y in zip(
+            (out[0], out[1], out[2], out[5], out[6]),
+            (pol.m_knots, pol.c_knots, dist, dit, ddiff))):
+        raise AssertionError("fine fused_cell_grid is not bitwise the "
+                             "reference kernels' chain")
+    N, A, D = 15, model.a_grid.shape[1], d0.shape[1]
+    rec = dict(dtype=str(dt), layout=K.fused_cell_grid_layout(
+                   N, A, D, False, dt),
+               egm_iters=out[3].tolist(), dist_iters=out[5].tolist(),
+               bitwise_vs_reference_kernels=True)
+    rec["kernel_ms"] = cuda_ms(lambda: K.fused_cell_grid(*args, **kw),
+                               reps=2)
+    rec["no_dist_ms"] = cuda_ms(lambda: K.fused_cell_grid(
+        *args, **kw, dist_max_iter=0), reps=2)
+    rec["dist_ns_per_step"] = 1e6 * (rec["kernel_ms"] - rec["no_dist_ms"]) \
+        / int(out[5][0])
+    rec["bound_ms"], rec["bound_by"] = fused_bound(dt, 1, model, out[3],
+                                                   out[5], False)
+    log("fine_fused", **rec)
+    return rec
+
+
+def _lean_fields(res, lane=None):
+    """A lean equilibrium's fields, of one lane of a batch."""
+    return {f: (v if lane is None else v[lane])
+            for f, v in res._asdict().items()}
+
+
+def phase_fine_equilibrium(dev):
+    """The fine configuration solved end to end on the card
+    (solve_calibration_lean(**fine_grid_kwargs()), the path a user
+    calls), float64 and float32, against tests/data/torch_fine_golden.json
+    (the JAX package on the CPU): r* within FINE_RSTAR_PCT, trips equal,
+    and in float64 the EGM and distribution steps equal and CONVERGED.
+    Then the four lanes of bench.py's fine-lanes run (CRRA 1, rho 0, 0.3,
+    0.6, 0.9) as one solve_cells_lean batch in float64, each lane bitwise
+    its C=1 solve and within 1e-6 pct of the golden.  Each solve's
+    counters are set to 0 just before it and read just after: one launch
+    of each reference kernel per trip.  Returns the launches by run."""
+    from aiyagari_hark_tpu_torch.models.equilibrium import (
+        solve_calibration_lean, solve_cells_lean)
+    from aiyagari_hark_tpu_torch.ops import kernels as K
+    from aiyagari_hark_tpu_torch.solver_health import status_name
+    from aiyagari_hark_tpu_torch.utils.config import fine_grid_kwargs
+
+    with open(FINE_GOLDEN) as f:
+        golden = json.load(f)
+
+    def solve(fn, *a, **kw):
+        K.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(*a, device=dev, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        trips = int(res.bisect_iters.max())
+        for name, n in launches.items():
+            want = trips if name in PATH_KERNELS["reference"] else 0
+            if n != want:
+                raise AssertionError(f"a fine solve of {trips} trips "
+                                     f"launched {name} {n} times")
+        return res, wall, launches
+
+    out = {}
+    kw = fine_grid_kwargs()
+    crra, rho = kw.pop("crra"), kw.pop("labor_ar")
+    for dt in FINE_DTYPES:
+        g = golden["fine"][str(dt).rsplit(".", 1)[-1]]
+        res, wall, launches = solve(solve_calibration_lean, crra, rho,
+                                    dtype=dt, **kw)
+        got = {f: float(v) if v.is_floating_point() else int(v)
+               for f, v in _lean_fields(res).items()}
+        dr = abs(100.0 * got["r_star"] - g["r_star_pct"])
+        counts = ("bisect_iters", "egm_iters", "dist_iters")
+        log("fine_equilibrium", dtype=str(dt), wall_s=wall,
+            launches=launches, dr_star_pct=dr,
+            status_name=status_name(got["status"]),
+            golden={k: g[k] for k in ("r_star_pct",) + counts}, **got)
+        if not dr <= FINE_RSTAR_PCT[dt]:
+            raise AssertionError(f"fine {dt} r* is {dr} pct from the "
+                                 f"golden, above {FINE_RSTAR_PCT[dt]}")
+        same = counts if dt == torch.float64 else counts[:1]
+        if any(got[k] != g[k] for k in same):
+            raise AssertionError(f"fine {dt} counts "
+                                 f"{[got[k] for k in same]} vs the "
+                                 f"golden's {[g[k] for k in same]}")
+        if dt == torch.float64 and status_name(got["status"]) != "CONVERGED":
+            raise AssertionError(f"fine f64 status "
+                                 f"{status_name(got['status'])}")
+        out[f"fine_{str(dt).rsplit('.', 1)[-1]}"] = launches
+
+    dt = torch.float64
+    cells = [(g["crra"], g["labor_ar"], 0.2) for g in golden["lanes"]]
+    res4, wall4, out["fine_lanes4"] = solve(solve_cells_lean, cells,
+                                            dtype=dt, **kw)
+    walls1 = []
+    for lane, (c, r, _) in enumerate(cells):
+        one, wall1, _ = solve(solve_calibration_lean, c, r, dtype=dt, **kw)
+        walls1.append(wall1)
+        a, b = _lean_fields(one), _lean_fields(res4, lane)
+        if not all(torch.equal(a[f], b[f]) for f in a):
+            raise AssertionError(f"fine lane {lane} (rho {r}) is not "
+                                 f"bitwise its C=1 solve")
+        dr = abs(100.0 * float(a["r_star"])
+                 - golden["lanes"][lane]["r_star_pct"])
+        if not dr <= FINE_RSTAR_PCT[dt]:
+            raise AssertionError(f"fine lane {lane} r* is {dr} pct from "
+                                 f"the golden")
+    log("fine_lanes", dtype=str(dt), wall_s=wall4, c1_wall_s=walls1,
+        launches=out["fine_lanes4"], bitwise_c1=True,
+        r_star_pct=(100.0 * res4.r_star).tolist(),
+        bisect_iters=res4.bisect_iters.tolist(),
+        egm_iters=res4.egm_iters.tolist(),
+        dist_iters=res4.dist_iters.tolist())
+    return out
 
 
 def phase_cell(dev, golden, kernel="reference", precision="reference"):
@@ -4196,7 +4417,8 @@ def main() -> int:
     escalation_check(dev)
     phase_profile(dev)
     phase_profile(dev, "fused")
-    fine_egm = phase_fine(dev)
+    fine_egm, fine_lottery, fine_fused = phase_fine(dev)
+    launches_fine = phase_fine_equilibrium(dev)
     launches_c1 = phase_cell(dev, golden)
     launches_c1.update({k: v for k, v in phase_cell(dev, golden,
                                                     "fused").items() if v})
@@ -4242,6 +4464,13 @@ def main() -> int:
             "shape": "C=12, N=7, A=32, D=500, float64",
         })
     kernels[0]["fine"] = fine_egm
+    kernels[1]["fine"] = fine_lottery
+    kernels[2]["fine"] = fine_fused
+    # phase 7: each kernel's launches per fine solve (f64, f32, the
+    # four-lane batch)
+    for k in kernels:
+        k["launches_fine"] = {run: n[k["name"]]
+                              for run, n in launches_fine.items()}
     # the ladders' launches per f64 sweep (the tail mode's: compact)
     for k in kernels[:2]:
         for path in ("mixed_float64", "fast_float64", "fused_mixed_float64",

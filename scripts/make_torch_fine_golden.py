@@ -1,0 +1,89 @@
+#!/usr/bin/env python
+"""Write the fine-configuration golden the PyTorch port is held to.
+
+    JAX_PLATFORMS=cpu python scripts/make_torch_fine_golden.py
+
+Runs the JAX package's ``solve_calibration_lean`` on the CPU at
+``utils.config.fine_grid_kwargs()`` (BASELINE.json config 2: 1000 assets,
+15 labor states, 1000 wealth points; CRRA 3, rho 0.6) in float64 and in
+float32, then the four cells of ``bench.py``'s ``_timed_fine_lanes``
+(CRRA 1, rho 0, 0.3, 0.6, 0.9 at the same width), each solved alone, in
+float64.  Writes ``tests/data/torch_fine_golden.json``: for each cell and
+dtype r*, capital, labor, bisection trips, summed EGM and distribution
+steps and the status code.
+
+Each record's ``jax_cpu_seconds`` is the JAX solve's wall on the CPU it
+ran on, a second, warm call; neither it nor anything else here is the
+port's.  ``tests/test_torch_fine.py`` and ``chip_smoke.py`` read only the
+JSON.
+"""
+
+import json
+import os
+import sys
+import time
+
+ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+sys.path.insert(0, ROOT)
+OUT = os.path.join(ROOT, "tests", "data", "torch_fine_golden.json")
+
+LANE_CRRA = 1.0
+LANE_RHOS = (0.0, 0.3, 0.6, 0.9)
+
+
+def solve(crra, rho, dtype, width):
+    """One cell, jitted as the JAX suite runs it; returns (record,
+    warm seconds)."""
+    import jax
+
+    from aiyagari_hark_tpu.models.equilibrium import solve_calibration_lean
+    from aiyagari_hark_tpu.solver_health import status_name
+
+    fn = jax.jit(lambda c, r: solve_calibration_lean(c, r, dtype=dtype,
+                                                     **width))
+    jax.block_until_ready(fn(crra, rho))       # tracing and compilation
+    t0 = time.perf_counter()
+    res = jax.block_until_ready(fn(crra, rho))
+    seconds = time.perf_counter() - t0
+    r_star = float(res.r_star)
+    return dict(crra=crra, labor_ar=rho, r_star=r_star,
+                r_star_pct=100.0 * r_star, capital=float(res.capital),
+                labor=float(res.labor), bisect_iters=int(res.bisect_iters),
+                egm_iters=int(res.egm_iters), dist_iters=int(res.dist_iters),
+                status=int(res.status),
+                status_name=status_name(int(res.status)),
+                jax_cpu_seconds=seconds), seconds
+
+
+def main():
+    import jax
+
+    jax.config.update("jax_enable_x64", True)
+    import jax.numpy as jnp
+
+    from aiyagari_hark_tpu.utils.config import fine_grid_kwargs
+
+    kw = fine_grid_kwargs()
+    crra, rho = kw.pop("crra"), kw.pop("labor_ar")
+    out = dict(width=kw, fine={}, lanes=[])
+    for name, dt in (("float64", jnp.float64), ("float32", jnp.float32)):
+        rec, s = solve(crra, rho, dt, kw)
+        out["fine"][name] = rec
+        print(f"fine {name}: r*={rec['r_star_pct']!r} pct, "
+              f"{rec['bisect_iters']} trips, {rec['egm_iters']} EGM and "
+              f"{rec['dist_iters']} distribution steps, {s:.1f} s")
+    for r in LANE_RHOS:
+        rec, s = solve(LANE_CRRA, r, jnp.float64, kw)
+        out["lanes"].append(rec)
+        print(f"lane rho={r}: r*={rec['r_star_pct']!r} pct, "
+              f"{rec['bisect_iters']} trips, {s:.1f} s")
+    tmp = f"{OUT}.{os.getpid()}.tmp"
+    with open(tmp, "w") as f:
+        json.dump(out, f, indent=1)
+        f.write("\n")
+    os.replace(tmp, OUT)
+    print(f"wrote {os.path.relpath(OUT, ROOT)}")
+
+
+if __name__ == "__main__":
+    main()

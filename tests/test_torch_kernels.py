@@ -387,6 +387,87 @@ def test_lottery_layout_is_chosen_by_size_alone(full, no_best, force_global,
                                        force_global)] == layout
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_lottery_push_tail_is_bitwise_the_padded_gather(dtype):
+    """``lottery_push`` takes the slots past ``PUSH_HEAD_SLOTS`` only for
+    the targets that have them: the padded gather's bits, and a
+    non-finite lane stays its own."""
+    rng = np.random.default_rng(11)
+    C, D, N = 3, 60, 4
+    near = np.arange(D)[None, :, None] + rng.integers(-2, 3, (C, D, N))
+    crowd = rng.random((C, D, N)) < 0.4      # many sources on a few rows
+    idx = torch.tensor(np.clip(np.where(crowd, rng.integers(0, 3, (C, D, N)),
+                                        near), 0, D - 2))
+    w = torch.tensor(rng.random((C, D, N)), dtype=dtype)
+    w[0, :5] = 0.0                           # zero shares are real entries
+    P = torch.tensor(rng.dirichlet(np.ones(N), size=(C, N)), dtype=dtype)
+    src, coef = K.lottery_gather(idx, w)
+    assert src.shape[0] > K.PUSH_HEAD_SLOTS
+    push = K.lottery_push(idx, w, P)
+    for _ in range(3):
+        d = torch.tensor(rng.random((C, D, N)), dtype=dtype)
+        assert torch.equal(push(d), K.push_forward_lanes(d, src, coef, P))
+    d[1] = float("nan")
+    out = push(d)
+    assert bool(torch.isfinite(out[0]).all() and torch.isfinite(out[2]).all())
+
+
+# Byte counts of stationary_lottery_grid.cu at three lanes (lottery_device.
+# cuh: lottery_csr_bytes + lottery_iterate_bytes for one block, with and
+# without the best iterate; lottery_cluster_bytes with no staging for each
+# block of an 8-block cluster): (D, N, itemsize) -> (full, no_best, cluster)
+LOTTERY_BYTES = {
+    (500, 7, 8): (212_080, 184_080, 17_952),      # the paper's width
+    (1000, 15, 8): (902_112, 782_112, 69_616),    # the fine width
+    (1000, 15, 4): (541_088, 481_088, 38_592),
+}
+
+
+@pytest.mark.parametrize("shape, force_global, layout", [
+    ((500, 7, 8), False, "shared"),
+    ((1000, 15, 8), False, "cluster"),
+    ((1000, 15, 4), False, "cluster"),
+    ((1000, 15, 8), True, "global"),
+    ((1000, 15, 4), True, "global"),
+    ((500, 7, 8), True, "global"),
+])
+def test_lottery_layout_takes_the_cluster_only_past_one_block(
+        shape, force_global, layout):
+    full, no_best, cluster = LOTTERY_BYTES[shape]
+    sizes = {1: full, 0: no_best}
+    assert K.LAYOUTS[K._lottery_layout(sizes.__getitem__, force_global,
+                                       cluster)] == layout
+    # a kernel without a cluster layout (fused_cell_grid) never takes it
+    assert K.LAYOUTS[K._lottery_layout(sizes.__getitem__,
+                                       force_global)] != "cluster"
+
+
+@pytest.mark.parametrize("cluster, layout", [
+    (K.MAX_WORKSPACE_SHARED_BYTES, "cluster"),
+    (K.MAX_WORKSPACE_SHARED_BYTES + 1, "global"),
+    (2 ** 64 - 1, "global"),          # N outside the kernel's 1..16
+])
+def test_lottery_cluster_needs_its_fixed_part_to_fit(cluster, layout):
+    sizes = {1: 902_112, 0: 782_112}
+    assert K.LAYOUTS[K._lottery_layout(sizes.__getitem__, False,
+                                       cluster)] == layout
+
+
+@pytest.mark.parametrize("fixed, D, N, itemsize, stage", [
+    (69_616, 1000, 15, 8, 13_484),     # f64: (231424 - 69616) // 12
+    (38_592, 1000, 15, 4, 24_104),     # f32: (231424 - 38592) // 8
+    (17_952, 20, 3, 8, 120),           # a small lane stages all 2 D N
+    (K.MAX_WORKSPACE_SHARED_BYTES, 1000, 15, 8, 0),
+    (K.MAX_WORKSPACE_SHARED_BYTES + 64, 1000, 15, 8, 0),
+])
+def test_lottery_stage_fills_the_rest_of_a_blocks_share(fixed, D, N,
+                                                        itemsize, stage):
+    got = K._lottery_stage(fixed, D, N, itemsize)
+    assert got == stage
+    assert fixed + got * (itemsize + 4) <= max(
+        fixed, K.MAX_WORKSPACE_SHARED_BYTES)
+
+
 def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
     from aiyagari_hark_tpu_torch.device import resolve_device
     from aiyagari_hark_tpu_torch.models.equilibrium import (
