@@ -15,10 +15,13 @@
 //    workspace in shared memory or, when that does not fit or the caller
 //    forces it, in global memory (the kernels are compiled once per
 //    layout, so each is addressed as what it is);
-//  - a thread-block cluster (kCluster = true, egm_policy_grid only) of G
-//    <= 8 blocks, block r holding the states [r S, r S + S) with S =
-//    ceil(N / 8): its three iterates, its rows of the marginal values and
-//    copies of a, levels, P, h, all in its own shared memory.  The
+//  - a thread-block cluster (kCluster = true) of G <= 8 blocks, block r
+//    holding the states [r S, r S + S) with S = ceil(N / 8): its three
+//    iterates, its rows of the marginal values and copies of a, levels,
+//    P, h, all in its own shared memory.  egm_policy_grid launches
+//    egm_cluster_blocks(N) blocks; fused_cell_grid's cluster has 8
+//    whatever N, and a block past the states holds none and only joins
+//    the barriers and the sums.  The
 //    expectation reads the other blocks' marginal-value rows through
 //    distributed shared memory, a thread taking whole assets so that each
 //    load serves both held states; the sup-norm, the Aitken sums and the
@@ -161,7 +164,7 @@ __device__ EgmResult<T> egm_fixed_point(
     G = (int)cg::this_cluster().num_blocks();
   }
   const int s0 = rank * S;              // the states held: [s0, s0 + ns)
-  const int ns = N - s0 < S ? N - s0 : S;
+  const int ns = N - s0 < S ? (N > s0 ? N - s0 : 0) : S;
   T* const it = w.it;
   T* const vp = w.vp;
   const T* const a = w.a;
@@ -204,7 +207,7 @@ __device__ EgmResult<T> egm_fixed_point(
   kap = nan_min(nan_max(kap, T(1e-3)), T(0.999));
   const bool walk = R >= T(0);          // the queries rise with the asset
   // phase A's share: runs of `run` assets, `rps` runs per held state
-  const int rps = nthr / ns > 0 ? nthr / ns : 1;
+  const int rps = ns > 0 && nthr / ns > 0 ? nthr / ns : 1;
   const int run = (A + rps - 1) / rps;
   // the Aitken sums' leaves: nt threads (a power of two, from the first
   // nb blocks) own L contiguous leaves each of the 2 N K, m then c

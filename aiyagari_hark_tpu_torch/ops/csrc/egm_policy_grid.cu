@@ -130,7 +130,9 @@ int launch_layout(const void* m0, const void* c0, const void* a,
           ? 0
           : workspace_bytes<T>(N, A, tail != 0, kLayout == kCluster);
   auto kern = egm_policy_kernel<T, kLayout>;
-  if (smem > 48 * 1024) {
+  // the default cap (48 KB) counts the static arrays too: allow every
+  // dynamic request
+  if (smem > 0) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;

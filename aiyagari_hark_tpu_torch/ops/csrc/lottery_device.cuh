@@ -23,8 +23,8 @@
 //    half the states, a shuffle swaps the sums, and each mixes half the
 //    next states over all states in order, so the [D, N] x [N, N] labor
 //    mix runs in registers right after the gather;
-//  - a thread-block cluster (lottery_cluster_loop, stationary_lottery_grid
-//    only) of kLotteryClusterMax blocks, block r owning the target rows
+//  - a thread-block cluster (lottery_cluster_loop) of kLotteryClusterMax
+//    blocks, block r owning the target rows
 //    [r R, r R + R), R = ceil(D / 8), in every labor state: its rows of
 //    the four iterates (current, previous, next, best) and its rows'
 //    starts in its own shared memory, and its rows' lottery entries
@@ -38,6 +38,15 @@
 //    kept apart: folded into one function, its global layout compiled to
 //    a gather loop unrolled 4 times instead of 16 and ran 10-21 % slower
 //    on the card.
+//
+// Each loop is compiled once per bound NB on the labor states (8, 16 or
+// 32), its mix holding a row's N sums in registers, and once more for any
+// N past 32 (NB = 0, the wide mix): a row's sums go once to a staging
+// buffer in the lane's own memory (shared, or the global scratch), and
+// each next state's value is formed from it in the order n = 0 ... N-1,
+// the same products in the same order, so the same bits.  The transition
+// is padded to NB (or N rounded up to 4) by the instantiation, never by
+// the largest bound: a lane of 7 states keeps a pad of 8 x 8.
 //
 // What bounds it on an H100: neither bytes nor FLOPs but the chain of
 // thousands of dependent steps, each at D=500, N=7 some 3.5 k outputs
@@ -61,9 +70,28 @@ namespace ahtt {
 
 namespace cg = cooperative_groups;
 
-constexpr int kLotteryMaxN = 16;
 constexpr int kStallWindow = 512;
 constexpr int kLotteryClusterMax = 8;     // the portable cluster size
+constexpr int kLotteryThreads = 512;      // every lottery kernel's block
+constexpr int kLotteryPackedMax = 1 << 16;   // a staged source's element
+
+// The bound NB on the labor states a lane's loop is compiled for: 8, 16
+// or 32, or 0 past 32 (the wide mix, no per-state array in registers).
+__host__ __device__ constexpr int lottery_nb(int N) {
+  return N <= 8 ? 8 : N <= 16 ? 16 : N <= 32 ? 32 : 0;
+}
+
+// The transposed transition's padded width under bound `nb`: nb, or N
+// rounded up to 4 for the wide mix (rows stay 16-byte aligned).
+__host__ __device__ constexpr int lottery_pad(int N, int nb) {
+  return nb ? nb : (N + 3) / 4 * 4;
+}
+
+// Elements of T of the wide mix's staging buffer (one row's N sums for
+// each row a pass of `tpr` threads per row covers); none under a bound.
+__host__ __device__ constexpr int lottery_mix_elems(int N, int nb, int tpr) {
+  return nb ? 0 : kLotteryThreads / tpr * N;
+}
 
 // Shared scratch of the loop, in elements of T: two alternating buffers
 // for the residual's reduction and three for the Aitken sums; a cluster
@@ -75,29 +103,31 @@ __host__ __device__ constexpr int lottery_cluster_red_elems(int threads) {
   return lottery_red_elems(threads) + 3;
 }
 
-// Bytes of the transition, transposed and padded to [kLotteryMaxN,
-// kLotteryMaxN]: the labor mix then reads each next state's coefficients
+// Bytes of the transition, transposed and padded to [pad, pad]
+// (lottery_pad): the labor mix then reads each next state's coefficients
 // contiguously, 16-byte aligned, at offsets known at compile time.
 template <typename T>
-__host__ __device__ constexpr size_t lottery_p_bytes() {
-  return (size_t)kLotteryMaxN * kLotteryMaxN * sizeof(T);
+__host__ __device__ constexpr size_t lottery_p_bytes(int N, int nb) {
+  return (size_t)lottery_pad(N, nb) * lottery_pad(N, nb) * sizeof(T);
 }
 
 // Bytes of a lane's lottery and transition in shared memory, 16-byte
 // aligned: the padded P and coefficient [N, 2D] in T, then start
 // [N, D+1] and source element [N, 2D] in int.
 template <typename T>
-__host__ __device__ inline size_t lottery_csr_bytes(int D, int N) {
-  const size_t b = lottery_p_bytes<T>() + 2 * (size_t)D * N * sizeof(T)
+__host__ __device__ inline size_t lottery_csr_bytes(int D, int N, int nb) {
+  const size_t b = lottery_p_bytes<T>(N, nb) + 2 * (size_t)D * N * sizeof(T)
                    + ((size_t)N * (D + 1) + 2 * (size_t)D * N) * sizeof(int);
   return (b + 15) / 16 * 16;
 }
 
-// Bytes of the iterates (current, previous, next), and the best one.
+// Bytes of the one-block loop's iterates (current, previous, next), the
+// best one, then the wide mix's staging rows.
 template <typename T>
-__host__ __device__ inline size_t lottery_iterate_bytes(int D, int N,
+__host__ __device__ inline size_t lottery_iterate_bytes(int D, int N, int nb,
                                                         bool best) {
-  return (best ? 4 : 3) * (size_t)D * N * sizeof(T);
+  return ((best ? 4 : 3) * (size_t)D * N + lottery_mix_elems(N, nb, 2))
+         * sizeof(T);
 }
 
 // Target rows each block of a cluster lane owns.
@@ -106,30 +136,38 @@ __host__ __device__ inline int lottery_cluster_rows(int D) {
 }
 
 // Bytes of one cluster block's shared memory: the padded P, its rows of
-// the four iterates [4, R N] in T, room for `stage` staged lottery
-// entries (coefficients in T, then their start [N, R+1] and packed
-// sources in int), 16-byte aligned.  With stage = 0: the part that must
-// fit for the lane to take the cluster layout.
+// the four iterates [4, R N] and the wide mix's staging rows in T, room
+// for `stage` staged lottery entries (coefficients in T, then their start
+// [N, R+1] and packed sources in int), 16-byte aligned.  With stage = 0:
+// the part that must fit for the lane to take the cluster layout.
 template <typename T>
-__host__ __device__ inline size_t lottery_cluster_bytes(int D, int N,
+__host__ __device__ inline size_t lottery_cluster_bytes(int D, int N, int nb,
                                                         int stage) {
   const size_t rn = (size_t)lottery_cluster_rows(D) * N;
-  const size_t b = lottery_p_bytes<T>() + (4 * rn + stage) * sizeof(T)
+  const size_t b = lottery_p_bytes<T>(N, nb)
+                   + (4 * rn + lottery_mix_elems(N, nb, 4) + stage)
+                         * sizeof(T)
                    + ((size_t)N * (lottery_cluster_rows(D) + 1) + stage)
                          * sizeof(int);
   return (b + 15) / 16 * 16;
 }
 
+// Whether a [D, N] lane's staged sources fit the packed (owner << 16) |
+// element form: each block's rows hold fewer than 2^16 elements.
+__host__ __device__ inline bool lottery_cluster_packs(int D, int N) {
+  return (long long)lottery_cluster_rows(D) * N < kLotteryPackedMax;
+}
+
 // The lottery_csr_bytes region at `base`.
 template <typename T>
 struct LotteryCsr {
-  T* Pt;    // Pt[n2][n] = P[n][n2], padded to [kLotteryMaxN, kLotteryMaxN]
+  T* Pt;    // Pt[n2][n] = P[n][n2], padded to [pad, pad]
   T* cf;
   int* st;
   int* se;
-  __device__ LotteryCsr(unsigned char* base, int D, int N) {
+  __device__ LotteryCsr(unsigned char* base, int D, int N, int nb) {
     Pt = reinterpret_cast<T*>(base);
-    cf = Pt + kLotteryMaxN * kLotteryMaxN;
+    cf = Pt + lottery_pad(N, nb) * lottery_pad(N, nb);
     st = reinterpret_cast<int*>(cf + 2 * D * N);
     se = st + N * (D + 1);
   }
@@ -140,26 +178,30 @@ template <typename T>
 struct LotteryClusterSmem {
   T* Pt;
   T* it;    // the iterates [3, R N], then the best one [R N]
+  T* mv;    // the wide mix's staging rows (none under a bound)
   T* cf;    // [stage]
   int* st;  // [N, R+1]
   int* se;  // [stage]
-  __device__ LotteryClusterSmem(unsigned char* base, int D, int N,
+  __device__ LotteryClusterSmem(unsigned char* base, int D, int N, int nb,
                                 int stage) {
     const int rn = lottery_cluster_rows(D) * N;
     Pt = reinterpret_cast<T*>(base);
-    it = Pt + kLotteryMaxN * kLotteryMaxN;
-    cf = it + 4 * rn;
+    it = Pt + lottery_pad(N, nb) * lottery_pad(N, nb);
+    mv = it + 4 * rn;
+    cf = mv + lottery_mix_elems(N, nb, 4);
     st = reinterpret_cast<int*>(cf + stage);
     se = st + N * (lottery_cluster_rows(D) + 1);
   }
 };
 
-// Copy a lane's [N, N] transition into the padded transpose Pt (the
-// block's threads share the work; the caller orders it before any read).
+// Copy a lane's [N, N] transition into the transpose Pt padded to `pad`
+// (the block's threads share the work; the caller orders it before any
+// read).
 template <typename T>
-__device__ __forceinline__ void load_transition(T* Pt, const T* P_l, int N) {
+__device__ __forceinline__ void load_transition(T* Pt, const T* P_l, int N,
+                                                int pad) {
   for (int j = threadIdx.x; j < N * N; j += blockDim.x)
-    Pt[(j % N) * kLotteryMaxN + j / N] = P_l[j];
+    Pt[(j % N) * pad + j / N] = P_l[j];
 }
 
 // The lottery entries a block gathers from: the row starts of the rows it
@@ -231,17 +273,19 @@ struct LotteryResult {
   T diff;   // the best residual, or the last one when that was non-finite
 };
 
-// Every thread of the block must call it (N <= NB <= kLotteryMaxN, NB
-// even, blockDim.x a power of two).  `st`, `se`, `cf` are the lane's CSR,
-// `Pt` its transition as load_transition lays it out (16-byte aligned),
-// `d0l` its initial distribution [D, N]; `iter3` holds the three iterates
-// [3, D, N]; the best iterate is kept in `best_d` [D, N] and copied to
-// `best_out` at the end when the two differ.  `red` is shared scratch of
+// Every thread of the block must call it (NB = lottery_nb(N), blockDim.x
+// = kLotteryThreads).  `st`, `se`, `cf` are the lane's CSR, `Pt` its
+// transition as load_transition lays it out with lottery_pad(N, NB)
+// (16-byte aligned), `d0l` its initial distribution [D, N]; `iter3` holds
+// the three iterates [3, D, N]; the best iterate is kept in `best_d`
+// [D, N] and copied to `best_out` at the end when the two differ.  `mv`
+// is the wide mix's staging rows, lottery_mix_elems(N, 0, 2) elements
+// (unused under a bound).  `red` is shared scratch of
 // lottery_red_elems(blockDim.x) elements.
 template <typename T, int NB>
 __device__ LotteryResult<T> lottery_fixed_point(
     const int* st, const int* se, const T* cf, const T* Pt, const T* d0l,
-    T* iter3, T* best_d, T* best_out, T* red, int D, int N, T tol,
+    T* iter3, T* best_d, T* best_out, T* mv, T* red, int D, int N, T tol,
     int max_iter, int accel_every) {
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
@@ -277,6 +321,35 @@ __device__ LotteryResult<T> lottery_fixed_point(
     // the next states n2 = h, h+2, ..., each over all states in order
     T dl = T(0);
     const int h = tid & 1;
+    if constexpr (NB == 0) {
+      // the wide mix: the pair's row of sums through its staging row
+      const int pad = lottery_pad(N, 0);
+      T* row = mv + (tid >> 1) * N;
+      for (int base = 0; base < D; base += nthr >> 1) {
+        const int t = base + (tid >> 1);
+        if (t < D)
+          for (int n = h; n < N; n += 2) {
+            const int* sen = se + n * D2;
+            const T* cfn = cf + n * D2;
+            const int k1 = st[n * (D + 1) + t + 1];
+            T acc = T(0);
+            for (int k = st[n * (D + 1) + t]; k < k1; ++k)
+              acc = acc + mul(cur[sen[k]], cfn[k]);
+            row[n] = acc;
+          }
+        __syncwarp();
+        if (t < D)
+          for (int n2 = h; n2 < N; n2 += 2) {
+            const T* pr = Pt + n2 * pad;
+            T o = mul(row[0], pr[0]);
+            for (int n = 1; n < N; ++n) o = o + mul(row[n], pr[n]);
+            const int j = t * N + n2;
+            nw[j] = o;
+            dl = nan_max(dl, (T)fabs(o - cur[j]));
+          }
+        __syncwarp();   // the pair's reads end before the next pass writes
+      }
+    } else
     for (int base = 0; base < D; base += nthr >> 1) {
       const int r = base + (tid >> 1);
       const int t = r < D ? r : D - 1;   // every lane takes the shuffles
@@ -306,7 +379,7 @@ __device__ LotteryResult<T> lottery_fixed_point(
         for (int i = 0; i < NB / 2; ++i) {
           const int n2 = 2 * i + h;
           if (n2 < N) {
-            const T* pr = Pt + n2 * kLotteryMaxN;   // P[., n2], aligned
+            const T* pr = Pt + n2 * NB;   // P[., n2], aligned
             T o = mul(acc[0], pr[0]);
 #pragma unroll
             for (int n = 1; n < NB; ++n)
@@ -388,15 +461,17 @@ __device__ LotteryResult<T> lottery_fixed_point(
 
 // A cluster lane's fixed point, the same iteration and arithmetic as
 // lottery_fixed_point.  Every thread of every block of the cluster must
-// call it, and gets the same result.  N <= NB <= kLotteryMaxN, NB a
-// multiple of 4, blockDim.x a power of two.  `rows` is this block's
-// lottery (lottery_stage_rows), `Pt` its transition as load_transition
-// lays it out (16-byte aligned), `d0l` the lane's initial distribution
-// [D, N] in global memory; `iter3` holds the block's rows of the three
-// iterates [3, R N] and `best_d` their best one [R N], copied to the lane's
-// output `best_out` [D, N] at the end.  `red` is shared scratch of
-// lottery_cluster_red_elems(blockDim.x) elements.  `iter3` and `red` sit
-// at the same offsets in every block's shared memory.
+// call it, and gets the same result.  NB = lottery_nb(N), blockDim.x =
+// kLotteryThreads.  `rows` is this block's lottery (lottery_stage_rows),
+// `Pt` its transition as load_transition lays it out with
+// lottery_pad(N, NB) (16-byte aligned), `d0l` the lane's initial
+// distribution [D, N] in global memory; `iter3` holds the block's rows of
+// the three iterates [3, R N] and `best_d` their best one [R N], copied to
+// the lane's output `best_out` [D, N] at the end; `mv` the wide mix's
+// staging rows, lottery_mix_elems(N, 0, 4) elements (unused under a
+// bound).  `red` is shared scratch of lottery_cluster_red_elems(
+// blockDim.x) elements.  `iter3` and `red` sit at the same offsets in
+// every block's shared memory.
 //
 // Four neighbouring threads share a target row (R = 125 rows at the fine
 // width, so one pass of 500 threads): thread h sums the sources of the
@@ -406,8 +481,8 @@ __device__ LotteryResult<T> lottery_fixed_point(
 template <typename T, int NB>
 __device__ LotteryResult<T> lottery_cluster_loop(
     const LotteryRows<T> rows, const T* Pt, const T* d0l, T* iter3,
-    T* best_d, T* best_out, T* red, int D, int N, T tol, int max_iter,
-    int accel_every) {
+    T* best_d, T* best_out, T* mv, T* red, int D, int N, T tol,
+    int max_iter, int accel_every) {
   constexpr int TPR = 4;                  // threads per target row
   constexpr int SPT = NB / TPR;           // states each of them sums
   static_assert(NB % TPR == 0, "NB a multiple of 4");
@@ -480,6 +555,48 @@ __device__ LotteryResult<T> lottery_cluster_loop(
     const int cb = ic * bn;
     T dl = T(0);
     const int h = tid % TPR;
+    if constexpr (NB == 0) {
+      // the wide mix: the row's sums through its four threads' staging row
+      const int pad = lottery_pad(N, 0);
+      // the source's owner block and its element there
+      auto owner = [&](int e, int* o, int* l) {
+        if (packed) {
+          *o = e >> 16;
+          *l = e & 0xffff;
+        } else {
+          *o = e / bn;
+          *l = e - *o * bn;
+        }
+      };
+      T* row = mv + (tid / TPR) * N;
+      for (int base = 0; base < nrows; base += nthr / TPR) {
+        const int i = base + tid / TPR;
+        if (i < nrows)
+          for (int n = h; n < N; n += TPR) {
+            const int* sen = se + n * ss;
+            const T* cfn = cf + n * ss;
+            const int k1 = st[n * rs + i + 1];
+            T acc = T(0);
+            for (int k = st[n * rs + i]; k < k1; ++k) {
+              int o, l;
+              owner(sen[k], &o, &l);
+              acc = acc + mul(peer[o][cb + l], cfn[k]);
+            }
+            row[n] = acc;
+          }
+        __syncwarp();
+        if (i < nrows)
+          for (int n2 = h; n2 < N; n2 += TPR) {
+            const T* pr = Pt + n2 * pad;
+            T o = mul(row[0], pr[0]);
+            for (int n = 1; n < N; ++n) o = o + mul(row[n], pr[n]);
+            const int l = i * N + n2;
+            nw[l] = o;
+            dl = nan_max(dl, (T)fabs(o - cur[l]));
+          }
+        __syncwarp();   // the row's reads end before the next pass writes
+      }
+    } else
     for (int base = 0; base < nrows; base += nthr / TPR) {
       const int u = base + tid / TPR;
       const int i = u < nrows ? u : nrows - 1;   // every lane shuffles
@@ -519,7 +636,7 @@ __device__ LotteryResult<T> lottery_cluster_loop(
         for (int q = 0; q < SPT; ++q) {
           const int n2 = TPR * q + h;
           if (n2 < N) {
-            const T* pr = Pt + n2 * kLotteryMaxN;   // P[., n2], aligned
+            const T* pr = Pt + n2 * NB;   // P[., n2], aligned
             T o = mul(acc[0], pr[0]);
 #pragma unroll
             for (int n = 1; n < NB; ++n)

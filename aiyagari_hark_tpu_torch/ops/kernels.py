@@ -42,10 +42,18 @@ from .utility import inverse_marginal_utility, marginal_utility
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
+# The kernels, and the library each source builds: the two distribution
+# kernels' bounds 32 and the wide mix (17 labor states or more) build as
+# libraries of their own, beside the bounds 8 and 16, so nvcc compiles
+# the halves together (``_lottery_library`` picks one by the lane's
+# bound).
+KERNELS = ("egm_policy_grid", "stationary_lottery_grid", "fused_cell_grid")
 SOURCES = {
     "egm_policy_grid": "egm_policy_grid.cu",
     "stationary_lottery_grid": "stationary_lottery_grid.cu",
     "fused_cell_grid": "fused_cell_grid.cu",
+    "stationary_lottery_grid_wide": "stationary_lottery_grid_wide.cu",
+    "fused_cell_grid_wide": "fused_cell_grid_wide.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=true", "-Xptxas", "-v", "-shared",
@@ -59,8 +67,19 @@ MAX_WORKSPACE_SHARED_BYTES = MAX_SHARED_BYTES - 1024
 # whole lane in global memory; the lottery and the iterates in shared
 # memory, the best iterate in the output; all of it in shared memory; a
 # thread-block cluster, the target rows split over its blocks' shared
-# memory (``stationary_lottery_grid`` only).
+# memory (and under ``fused_cell_grid`` the labor states of its EGM phase).
 LAYOUTS = ("global", "shared_best_in_output", "shared", "cluster")
+# The bounds on the labor states the distribution loops are compiled for:
+# a bound's mix holds a row's sums in registers.  Past the last, the wide
+# mix (bound 0) takes any count, its row's sums through a staging buffer.
+LOTTERY_STATE_BOUNDS = (8, 16, 32)
+# What the distribution kernels' launches refuse, checked here first: a
+# pairwise sum's leaves (a lane's D N elements, and the fused kernel's
+# 2 N K knots) at most 512 threads x 2^16 leaves a thread
+# (``csrc/common.cuh``, ``kChunkLevels``); the fused kernel's savings
+# policy needs two wealth points.
+PAIRWISE_LEAVES_MAX = 512 << 16
+FUSED_MIN_WEALTH_POINTS = 2
 # The EGM kernel's layouts, by the code it takes: one block on a global
 # workspace; one block, all in shared memory; a thread-block cluster, the
 # labor states split over its blocks' shared memory.
@@ -69,7 +88,7 @@ EGM_LAYOUTS = ("global", "shared", "cluster")
 # Launch counters: one plain integer per kernel, advanced only where the
 # wrapper launches its kernel (never by a plain version), under a lock:
 # a sharded launch may run blocks on distinct cards from several threads.
-LAUNCHES = {name: 0 for name in SOURCES}
+LAUNCHES = {name: 0 for name in KERNELS}
 _COUNT_LOCK = threading.Lock()
 
 
@@ -111,7 +130,9 @@ def _nvcc() -> str:
 
 def _digest(name: str) -> str:
     h = hashlib.sha256()
-    for f in [_CSRC / SOURCES[name], *sorted(_CSRC.glob("*.cuh"))]:
+    # a source may include another (the wide libraries do)
+    for f in [_CSRC / SOURCES[name], *sorted(_CSRC.glob("*.cu")),
+              *sorted(_CSRC.glob("*.cuh"))]:
         h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
@@ -131,29 +152,29 @@ def _bind(lib, name: str) -> None:
             fn.restype = ull
         lib.egm_policy_grid_cluster_blocks.argtypes = [ci]
         lib.egm_policy_grid_cluster_blocks.restype = ci
-    elif name == "fused_cell_grid":
+    elif name.startswith("fused_cell_grid"):
         for sfx in ("f32", "f64"):
             fn = getattr(lib, f"fused_cell_grid_{sfx}")
-            fn.argtypes = [vp] * 17 + [ci] * 6 + [cd, ci, ci, cd, ci, ci, vp]
+            fn.argtypes = [vp] * 17 + [ci] * 8 + [cd, ci, ci, cd, ci, ci, vp]
             fn.restype = ci
-        lib.fused_cell_grid_workspace_bytes.argtypes = [ci] * 6
-        lib.fused_cell_grid_workspace_bytes.restype = ull
-        lib.fused_cell_grid_max_states.argtypes = []
-        lib.fused_cell_grid_max_states.restype = ci
+        for fn, n in ((lib.fused_cell_grid_workspace_bytes, 7),
+                      (lib.fused_cell_grid_cluster_bytes, 7),
+                      (lib.fused_cell_grid_cluster_lottery_bytes, 4),
+                      (lib.fused_cell_grid_cluster_ws_bytes, 3)):
+            fn.argtypes = [ci] * n
+            fn.restype = ull
     else:
         for sfx in ("f32", "f64"):
             fn = getattr(lib, f"stationary_lottery_grid_{sfx}")
-            fn.argtypes = [vp] * 9 + [ci] * 5 + [cd, ci, ci, vp]
+            fn.argtypes = [vp] * 9 + [ci] * 6 + [cd, ci, ci, vp]
             fn.restype = ci
-        for fn in (lib.stationary_lottery_grid_max_states,
-                   lib.stationary_lottery_grid_cluster_blocks):
-            fn.argtypes = []
-            fn.restype = ci
+        lib.stationary_lottery_grid_cluster_blocks.argtypes = []
+        lib.stationary_lottery_grid_cluster_blocks.restype = ci
         for fn in (lib.stationary_lottery_grid_shared_bytes,
                    lib.stationary_lottery_grid_cluster_bytes):
-            fn.argtypes = [ci] * 4
+            fn.argtypes = [ci] * 5
             fn.restype = ull
-        lib.stationary_lottery_grid_scratch_elems.argtypes = [ci, ci]
+        lib.stationary_lottery_grid_scratch_elems.argtypes = [ci] * 3
         lib.stationary_lottery_grid_scratch_elems.restype = ull
 
 
@@ -223,6 +244,13 @@ def _library(name: str):
     return _LIBS[name]
 
 
+def _lottery_library(kernel: str, N: int):
+    """The library of a distribution kernel (``stationary_lottery_grid``
+    or ``fused_cell_grid``) that holds the bound of a lane of N states."""
+    wide = lottery_state_bound(N) not in LOTTERY_STATE_BOUNDS[:2]
+    return _library(kernel + "_wide" if wide else kernel)
+
+
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
@@ -259,6 +287,40 @@ def _lottery_layout(nbytes, force_global: bool,
             and cluster_bytes <= MAX_WORKSPACE_SHARED_BYTES:
         return 3
     return 0
+
+
+def lottery_state_bound(N: int) -> int:
+    """The bound on the labor states the distribution loops of a lane of
+    N states are compiled for, by size alone: the first of
+    ``LOTTERY_STATE_BOUNDS`` at or above N, else 0 (the wide mix, no
+    per-state array in registers).  The byte counts and the launches take
+    it (``csrc/lottery_device.cuh``, ``lottery_nb``, which the launches
+    check it against)."""
+    return next((nb for nb in LOTTERY_STATE_BOUNDS if N <= nb), 0)
+
+
+def _next_pow2(m: int) -> int:
+    return 1 << max(0, int(m) - 1).bit_length()
+
+
+def _check_lane_limits(name: str, D: int, N: int, K: int | None = None):
+    """Raise ``ValueError`` naming the limit where a distribution kernel's
+    launch would refuse a lane of D wealth points and N labor states (and,
+    for the fused kernel, K policy knots a state)."""
+    if _next_pow2(D * N) > PAIRWISE_LEAVES_MAX:
+        raise ValueError(f"{name}: a lane of D*N = {D * N} elements (D={D}, "
+                         f"N={N}) exceeds the pairwise-sum limit of "
+                         f"{PAIRWISE_LEAVES_MAX} leaves (PAIRWISE_LEAVES_MAX)")
+    if K is None:
+        return
+    if D < FUSED_MIN_WEALTH_POINTS:
+        raise ValueError(f"{name}: D={D} wealth points, below the savings "
+                         f"policy's {FUSED_MIN_WEALTH_POINTS} "
+                         f"(FUSED_MIN_WEALTH_POINTS)")
+    if _next_pow2(2 * N * K) > PAIRWISE_LEAVES_MAX:
+        raise ValueError(f"{name}: 2*N*K = {2 * N * K} policy knots (N={N}, "
+                         f"K={K}) exceed the pairwise-sum limit of "
+                         f"{PAIRWISE_LEAVES_MAX} leaves (PAIRWISE_LEAVES_MAX)")
 
 
 def _lottery_stage(fixed_bytes: int, D: int, N: int, itemsize: int) -> int:
@@ -583,7 +645,8 @@ def _lottery_cluster_cut(lib, D: int, N: int, dtype) -> tuple[int, int]:
     """(bytes each block of a [D, N] cluster lane must hold, lottery
     entries each may stage)."""
     f64 = int(dtype == torch.float64)
-    fixed = int(lib.stationary_lottery_grid_cluster_bytes(D, N, f64, 0))
+    fixed = int(lib.stationary_lottery_grid_cluster_bytes(
+        D, N, lottery_state_bound(N), f64, 0))
     return fixed, _lottery_stage(fixed, D, N, torch.finfo(dtype).bits // 8)
 
 
@@ -591,12 +654,13 @@ def _stationary_layout(D: int, N: int, dtype,
                        force_global: bool) -> tuple[int, int]:
     """(index into ``LAYOUTS``, lottery entries a cluster block may
     stage: 0 outside the cluster layout)."""
-    lib = _library("stationary_lottery_grid")
+    lib = _lottery_library("stationary_lottery_grid", N)
     f64 = int(dtype == torch.float64)
+    nb = lottery_state_bound(N)
     fixed, stage = _lottery_cluster_cut(lib, D, N, dtype)
     layout = _lottery_layout(
         lambda best: int(lib.stationary_lottery_grid_shared_bytes(
-            D, N, f64, best)), force_global, fixed)
+            D, N, nb, f64, best)), force_global, fixed)
     return layout, stage if layout == 3 else 0
 
 
@@ -611,12 +675,13 @@ def stationary_lottery_grid_cluster(D: int, N: int, dtype) -> dict:
     """How a [D, N] lane's cluster is cut, from the library: its blocks,
     the bytes each must hold (``fixed_bytes``), the lottery entries each
     may stage and the shared memory each then takes (``block_bytes``)."""
-    lib = _library("stationary_lottery_grid")
+    lib = _lottery_library("stationary_lottery_grid", N)
     fixed, stage = _lottery_cluster_cut(lib, D, N, dtype)
     return dict(blocks=int(lib.stationary_lottery_grid_cluster_blocks()),
                 fixed_bytes=fixed, stage_entries=stage,
                 block_bytes=int(lib.stationary_lottery_grid_cluster_bytes(
-                    D, N, int(dtype == torch.float64), stage)))
+                    D, N, lottery_state_bound(N), int(dtype == torch.float64),
+                    stage)))
 
 
 def stationary_lottery_grid(idx, weight, P, dist0, tol: float,
@@ -654,11 +719,9 @@ def stationary_lottery_grid(idx, weight, P, dist0, tol: float,
     if dev.type == "cpu":
         return stationary_lottery_grid_plain(idx, weight, P, dist0, tol,
                                              max_iter, accel_every)
-    lib = _library("stationary_lottery_grid")
-    max_n = int(lib.stationary_lottery_grid_max_states())
-    if N > max_n:
-        raise ValueError(f"stationary_lottery_grid: N={N} labor states "
-                         f"(D={D}) exceeds the kernel's {max_n}")
+    _check_lane_limits("stationary_lottery_grid", D, N)
+    lib = _lottery_library("stationary_lottery_grid", N)
+    nb = lottery_state_bound(N)
     start, src, coef = lottery_csr(idx, weight)
     # each source as its element d N + n of the flattened [D, N] iterate
     elem = (src * N + torch.arange(N, dtype=src.dtype, device=dev)[:, None]
@@ -671,14 +734,14 @@ def stationary_lottery_grid(idx, weight, P, dist0, tol: float,
     if C == 0:
         return dist, iters, diff
     layout, stage = _stationary_layout(D, N, dt, force_global)
-    per_lane = (int(lib.stationary_lottery_grid_scratch_elems(D, N))
+    per_lane = (int(lib.stationary_lottery_grid_scratch_elems(D, N, nb))
                 if layout == 0 else 0)
     scratch = torch.empty((C, per_lane), dtype=dt, device=dev)
     f64 = dt == torch.float64
     fn = (lib.stationary_lottery_grid_f64 if f64
           else lib.stationary_lottery_grid_f32)
     rc = fn(_ptr(start), _ptr(elem), _ptr(coef), _ptr(P), _ptr(dist0),
-            _ptr(dist), _ptr(iters), _ptr(diff), _ptr(scratch), layout,
+            _ptr(dist), _ptr(iters), _ptr(diff), _ptr(scratch), layout, nb,
             stage, C, D, N, float(tol), int(max_iter), int(accel_every),
             _stream(dev))
     if rc != 0:
@@ -721,19 +784,58 @@ def fused_cell_grid_plain(m0, c0, a_grid, dist_grid, levels, P, scalars, h,
 
 
 def _fused_layout(N: int, A: int, D: int, tail: bool, dtype,
-                  force_global: bool) -> int:
-    lib = _library("fused_cell_grid")
+                  force_global: bool) -> tuple[int, int]:
+    """(index into ``LAYOUTS``, lottery entries a cluster block may
+    stage: 0 outside the cluster layout), by size alone.  The cluster is
+    taken only where one block cannot hold the lane, and never with
+    ``tail`` (the EGM cluster loop closes no tail): its bytes are the
+    largest of the EGM cluster block's, the sort's and the lottery
+    cluster's fixed part; its stage fills the lottery region's room."""
+    lib = _lottery_library("fused_cell_grid", N)
     f64 = int(dtype == torch.float64)
-    return _lottery_layout(
+    nb = lottery_state_bound(N)
+    cluster = None if tail else int(lib.fused_cell_grid_cluster_bytes(
+        N, A, D, nb, 0, f64, 0))
+    layout = _lottery_layout(
         lambda best: int(lib.fused_cell_grid_workspace_bytes(
-            N, A, D, int(tail), f64, best)), force_global)
+            N, A, D, nb, int(tail), f64, best)), force_global, cluster)
+    if layout != 3:
+        return layout, 0
+    return layout, _lottery_stage(
+        int(lib.fused_cell_grid_cluster_lottery_bytes(N, D, nb, f64)), D, N,
+        torch.finfo(dtype).bits // 8)
 
 
 def fused_cell_grid_layout(N: int, A: int, D: int, tail: bool, dtype,
                            force_global: bool = False) -> str:
     """The layout ``fused_cell_grid`` runs a lane in on the card (an entry
-    of ``LAYOUTS``)."""
-    return LAYOUTS[_fused_layout(N, A, D, tail, dtype, force_global)]
+    of ``LAYOUTS``): one block (shared, else global) where it fits or
+    under ``tail``, else a cluster of 8 blocks (2-16 labor states, no
+    tail), else global.  With ``tail`` (the compact grids) a lane too big
+    for one block keeps the global layout, as ``egm_policy_grid_layout``
+    does."""
+    return LAYOUTS[_fused_layout(N, A, D, tail, dtype, force_global)[0]]
+
+
+def fused_cell_grid_cluster(N: int, A: int, D: int, dtype) -> dict:
+    """How a lane's fused cluster is cut, from the library: its blocks,
+    the bytes each must hold (``fixed_bytes``: the largest of its phases),
+    the lottery region's fixed part, the lottery entries each may stage,
+    the shared memory each then takes (``block_bytes``) and the lane's
+    global workspace."""
+    lib = _lottery_library("fused_cell_grid", N)
+    f64 = int(dtype == torch.float64)
+    nb = lottery_state_bound(N)
+    stage = _fused_layout(N, A, D, False, dtype, False)[1]
+    return dict(blocks=8, fixed_bytes=int(lib.fused_cell_grid_cluster_bytes(
+                    N, A, D, nb, 0, f64, 0)),
+                lottery_fixed_bytes=int(
+                    lib.fused_cell_grid_cluster_lottery_bytes(N, D, nb, f64)),
+                stage_entries=stage,
+                block_bytes=int(lib.fused_cell_grid_cluster_bytes(
+                    N, A, D, nb, 0, f64, stage)),
+                workspace_bytes=int(lib.fused_cell_grid_cluster_ws_bytes(
+                    N, D, f64)))
 
 
 def fused_cell_grid(m0, c0, a_grid, dist_grid, levels, P, scalars, h, d0,
@@ -741,10 +843,10 @@ def fused_cell_grid(m0, c0, a_grid, dist_grid, levels, P, scalars, h, d0,
                     dist_tol: float = 1e-11, dist_max_iter: int = 20000,
                     dist_accel: int = 64, tail: bool = False,
                     force_global: bool = False):
-    """Batched supply evaluations, one lane per thread block: the EGM
-    policy fixed point, the savings policy on the histogram support, the
-    lottery grouped by target, and the stationary distribution, in one
-    launch.
+    """Batched supply evaluations, one lane per thread block or per
+    thread-block cluster: the EGM policy fixed point, the savings policy
+    on the histogram support, the lottery grouped by target, and the
+    stationary distribution, in one launch.
 
     Args: ``m0``/``c0`` [C, N, K] initial knots (K = A+1, or A+3 with
     ``tail``: every iterate closed by the analytic tail), ``a_grid``
@@ -756,7 +858,11 @@ def fused_cell_grid(m0, c0, a_grid, dist_grid, levels, P, scalars, h, d0,
     dist_diff [C]); the statuses are rebuilt from the (iters, diff)
     pairs.  ``force_global``: as for ``stationary_lottery_grid``; the
     workspace holds the lottery, then one region that the EGM phase and
-    the sort use first and the distribution iterates then."""
+    the sort use first and the distribution iterates then.  A lane too
+    big for one block, without ``tail``, runs on a cluster of 8 blocks:
+    the EGM phase split by labor state, the lottery sorted into a global
+    workspace, the distribution split by target row
+    (``fused_cell_grid_layout``); all layouts agree bitwise."""
     dev, dt = m0.device, m0.dtype
     C, N, K = m0.shape
     A = a_grid.shape[-1]
@@ -781,11 +887,9 @@ def fused_cell_grid(m0, c0, a_grid, dist_grid, levels, P, scalars, h, d0,
                                      scalars, h, d0, tol, max_iter,
                                      accel_every, dist_tol, dist_max_iter,
                                      dist_accel, tail)
-    lib = _library("fused_cell_grid")
-    max_n = int(lib.fused_cell_grid_max_states())
-    if N > max_n:
-        raise ValueError(f"fused_cell_grid: N={N} labor states exceeds the "
-                         f"kernel's {max_n}")
+    _check_lane_limits("fused_cell_grid", D, N, K)
+    lib = _lottery_library("fused_cell_grid", N)
+    nb = lottery_state_bound(N)
     f64 = dt == torch.float64
     args = [t.contiguous() for t in (m0, c0, a_grid, dist_grid, levels, P,
                                      scalars, h, d0)]
@@ -799,17 +903,23 @@ def fused_cell_grid(m0, c0, a_grid, dist_grid, levels, P, scalars, h, d0,
     outs = (m, c, dist, egm_it, egm_diff, dist_it, dist_diff)
     if C == 0:
         return outs
-    layout = _fused_layout(N, A, D, tail, dt, force_global)
-    # a global workspace (without the best iterate) only for layout 0
-    ws = _workspace(int(lib.fused_cell_grid_workspace_bytes(
-        N, A, D, int(tail), int(f64), 0)), C, layout == 0, dev)
+    layout, stage = _fused_layout(N, A, D, tail, dt, force_global)
+    # a global workspace: the whole lane (without the best iterate) for
+    # layout 0, the sort's output for the cluster, none in shared memory
+    if layout == 3:
+        ws_bytes = int(lib.fused_cell_grid_cluster_ws_bytes(N, D, int(f64)))
+    else:
+        ws_bytes = int(lib.fused_cell_grid_workspace_bytes(
+            N, A, D, nb, int(tail), int(f64), 0))
+    ws = _workspace(ws_bytes, C, layout in (0, 3), dev)
     fn = lib.fused_cell_grid_f64 if f64 else lib.fused_cell_grid_f32
     rc = fn(*(_ptr(t) for t in args), *(_ptr(t) for t in outs), _ptr(ws),
-            layout, int(tail), C, N, A, D, float(tol),
+            layout, nb, stage, int(tail), C, N, A, D, float(tol),
             int(max_iter), int(accel_every), float(dist_tol),
             int(dist_max_iter), int(dist_accel), _stream(dev))
     if rc != 0:
         raise RuntimeError(f"fused_cell_grid: kernel launch failed with "
-                           f"CUDA error {rc}")
+                           f"CUDA error {rc} ({LAYOUTS[layout]} layout, "
+                           f"tail={tail})")
     _count_launch("fused_cell_grid")
     return outs

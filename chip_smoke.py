@@ -5,7 +5,8 @@
 
 Phases (each raises on failure, and the script then exits non-zero):
   1. card: name and power limit, TF32 off, build of the CUDA kernels
-     (one nvcc per source, all started together);
+     (one nvcc per source, all started together), beside phase 11, which
+     runs first: its path launches none of them;
   2. each kernel against its plain PyTorch version, both on the card, at
      the reference width (N=7, A=32, D=500), C=12 and C=1, float64 and
      float32: equal step counts and bitwise equal values, C=12 bitwise
@@ -43,13 +44,23 @@ Phases (each raises on failure, and the script then exits non-zero):
      (float64 and float32) in their cluster layouts (the lane does not fit
      one block's shared memory), each bitwise equal to its plain version,
      to its global layout and, at C=4 (four prices), to four C=1 launches,
-     both layouts timed in turns; then solve_calibration_lean(
-     **fine_grid_kwargs()) on the card in float64 (r* within 1e-6 pct of
-     tests/data/torch_fine_golden.json, the JAX package's, trips, EGM and
-     distribution steps equal, CONVERGED) and float32 (1 bp, trips
-     equal), and bench.py's four fine lanes (CRRA 1, rho 0-0.9) as one
+     both layouts timed in turns; the fused kernel (float64 and float32)
+     in its cluster layout, bitwise its global layout, its plain version
+     and the reference kernels' chain, timed in turns against each, and
+     at N = 12 and 3 (A=D=1000, float64: blocks past the EGM phase's
+     states join its barriers) bitwise its global layout and the chain;
+     then solve_calibration_lean(**fine_grid_kwargs()) on the card in
+     float64 (r* within 1e-6 pct of tests/data/torch_fine_golden.json, the JAX
+     package's, trips, EGM and distribution steps equal, CONVERGED) and
+     float32 (1 bp, trips equal), under the reference kernels (one launch
+     of each a trip) and under kernel="fused" (one fused launch a trip),
+     and bench.py's four fine lanes (CRRA 1, rho 0-0.9) as one
      solve_cells_lean batch, each lane bitwise its C=1 solve and within
-     1e-6 pct of the golden; one launch of each reference kernel a trip;
+     1e-6 pct of the golden.  Any number of labor states: the lottery and
+     fused kernels at N = 17 and 40 (D = 500 and 40), every layout each
+     size takes bitwise the plain version; config 1 (N=7, A=100, D=500)
+     in float64 and float32 and the cells N = 17, 21, 40 (A=32, D=500)
+     against their goldens, each kernel's layout printed;
   8. one cell with the full equilibrium objects (the single-lane entry:
      every launch has C=1), reference, fused and precision="mixed",
      launch counters advanced; one lean cell by root_method="illinois"
@@ -213,6 +224,7 @@ import math
 import os
 import subprocess
 import sys
+import threading
 import time
 import warnings
 
@@ -926,8 +938,9 @@ def phase_fine(dev):
     (force_global) bitwise, both layouts timed in turns; at C=4 (four
     prices) one launch equals four C=1 launches bitwise.  The distribution
     kernel, on those policies, in float64 and float32:
-    ``fine_lottery_check``.  The fused kernel: ``fine_fused_check``.
-    Returns the EGM record, the two lottery records and the fused one."""
+    ``fine_lottery_check``.  The fused kernel: ``fine_fused_check`` and
+    ``fused_cluster_states_check``.  Returns the EGM record, the two
+    lottery records and the fused ones."""
     from aiyagari_hark_tpu_torch.models import firm
     from aiyagari_hark_tpu_torch.models import household as H
     from aiyagari_hark_tpu_torch.ops import kernels as K
@@ -991,7 +1004,8 @@ def phase_fine(dev):
 
     lottery = [fine_lottery_check(dev, dt, four if dt == torch.float64
                                   else None) for dt in FINE_DTYPES]
-    return egm, lottery, fine_fused_check(dev)
+    return (egm, lottery, fine_fused_check(dev)
+            + fused_cluster_states_check(dev))
 
 
 # Phase 7: the fine configuration's lottery lanes and equilibria.
@@ -1091,48 +1105,146 @@ def fine_lottery_check(dev, dt, pol=None):
 
 
 def fine_fused_check(dev):
-    """The fused kernel at the fine width (float64, r = 4 %, C=1): one
-    block on a global workspace (it has no cluster layout), bitwise the
-    reference kernels' chain on the card (the EGM kernel, wealth_transition,
-    the lottery kernel, both in their cluster layouts); its time, its time
-    with no distribution step, and its bound.  Returns the record."""
+    """The fused kernel at the fine width (r = 4 %, C=1), float64 and
+    float32: it takes its cluster layout (8 blocks: the EGM phase split by
+    labor state, the lottery sorted into a global workspace, the
+    distribution split by target row) and is bitwise its global layout
+    (force_global) and the reference kernels' chain on the card (the EGM
+    kernel, wealth_transition, the lottery kernel, both in their cluster
+    layouts, each bitwise its plain version in phase 7, so the fused
+    kernel is its plain version's bits too).  Times, each pair in turns:
+    the cluster against the global layout, the cluster against the
+    chain; the cluster and the global layout with no distribution step;
+    ns per distribution step; the bound.  Returns the records."""
+    from aiyagari_hark_tpu_torch.models import household as H
+    from aiyagari_hark_tpu_torch.ops import kernels as K
+
+    recs = []
+    for dt in FINE_DTYPES:
+        egm_tol, dist_tol = INNER_TOL[dt]
+        model, R, W, pol = _fine_lanes(dev, dt, rates=FINE_RATES[:1])
+        trans = H.wealth_transition(pol, R, W, model)
+        d0 = H.initial_distribution(model)
+        dist, dit, ddiff = K.stationary_lottery_grid(
+            trans.idx, trans.weight, model.transition, d0, dist_tol)
+        p0 = H.initial_policy(model)
+        sc = H._scalars(R, W, model, 0.96, 3.0)
+        args = (p0.m_knots, p0.c_knots, model.a_grid, model.dist_grid,
+                model.labor_levels, model.transition, sc,
+                torch.zeros_like(model.labor_levels), d0)
+        kw = dict(tol=egm_tol, dist_tol=dist_tol)
+        N, A, D = model.labor_levels.shape[1], model.a_grid.shape[1], \
+            d0.shape[1]
+        layout = K.fused_cell_grid_layout(N, A, D, False, dt)
+        if layout != "cluster":
+            raise AssertionError(f"the fine {dt} fused lane takes the "
+                                 f"{layout} layout, not the cluster one")
+        out = K.fused_cell_grid(*args, **kw)
+        if not all(torch.equal(x, y) for x, y in zip(
+                (out[0], out[1], out[2], out[5], out[6]),
+                (pol.m_knots, pol.c_knots, dist, dit, ddiff))):
+            raise AssertionError(f"fine {dt} fused_cell_grid (cluster) is "
+                                 f"not bitwise the reference kernels' chain")
+        if not all(torch.equal(x, y) for x, y in zip(
+                K.fused_cell_grid(*args, **kw, force_global=True), out)):
+            raise AssertionError(f"fine {dt} fused_cell_grid: the cluster "
+                                 f"layout is not bitwise the global one")
+
+        def chain():
+            m, c, _, _ = K.egm_policy_grid(*args[:2], model.a_grid,
+                                           model.labor_levels,
+                                           model.transition, sc, egm_tol)
+            tr = H.wealth_transition(H.HouseholdPolicy(m, c), R, W, model)
+            return K.stationary_lottery_grid(tr.idx, tr.weight,
+                                             model.transition, d0, dist_tol)
+
+        rec = dict(dtype=str(dt), N=N, A=A, D=D, layout=layout,
+                   cluster=K.fused_cell_grid_cluster(N, A, D, dt),
+                   egm_iters=out[3].tolist(), dist_iters=out[5].tolist(),
+                   bitwise_vs_reference_kernels=True,
+                   bitwise_global_cluster=True)
+        fused = lambda: K.fused_cell_grid(*args, **kw)  # noqa: E731
+        rec["kernel_ms"], rec["global_ms"] = paired_ms(
+            fused, lambda: K.fused_cell_grid(*args, **kw, force_global=True),
+            reps=2)
+        rec["turns_ms"], rec["chain_ms"] = paired_ms(fused, chain, reps=2)
+        rec["no_dist_ms"], rec["global_no_dist_ms"] = paired_ms(
+            lambda: K.fused_cell_grid(*args, **kw, dist_max_iter=0),
+            lambda: K.fused_cell_grid(*args, **kw, dist_max_iter=0,
+                                      force_global=True), reps=2)
+        steps = int(out[5][0])
+        rec["dist_ns_per_step"] = 1e6 * (rec["kernel_ms"]
+                                         - rec["no_dist_ms"]) / steps
+        rec["global_dist_ns_per_step"] = 1e6 * (
+            rec["global_ms"] - rec["global_no_dist_ms"]) / steps
+        rec["bound_ms"], rec["bound_by"] = fused_bound(dt, 1, model, out[3],
+                                                       out[5], False)
+        log("fine_fused", **rec)
+        recs.append(rec)
+    return recs
+
+
+# Labor-state counts whose EGM phase holds fewer than 8 blocks of states
+# (egm_cluster_blocks: 6 at N=12, 3 at N=3): the fused cluster's other
+# blocks only join its barriers and sums.
+FUSED_CLUSTER_STATES = (12, 3)
+
+
+def fused_cluster_states_check(dev):
+    """The fused kernel's cluster at the fine width's A and D with N = 12
+    and 3 labor states (float64, r = 4 %, C=1), where blocks past the EGM
+    states hold none: it takes the cluster layout and is bitwise its
+    global layout and the reference kernels' chain.  Returns the
+    records."""
+    from aiyagari_hark_tpu_torch.models import firm
     from aiyagari_hark_tpu_torch.models import household as H
     from aiyagari_hark_tpu_torch.ops import kernels as K
 
     dt = torch.float64
     egm_tol, dist_tol = INNER_TOL[dt]
-    model, R, W, pol = _fine_lanes(dev, dt, rates=FINE_RATES[:1])
-    trans = H.wealth_transition(pol, R, W, model)
-    d0 = H.initial_distribution(model)
-    dist, dit, ddiff = K.stationary_lottery_grid(
-        trans.idx, trans.weight, model.transition, d0, dist_tol)
-    p0 = H.initial_policy(model)
-    args = (p0.m_knots, p0.c_knots, model.a_grid, model.dist_grid,
-            model.labor_levels, model.transition,
-            H._scalars(R, W, model, 0.96, 3.0),
-            torch.zeros_like(model.labor_levels), d0)
-    kw = dict(tol=egm_tol, dist_tol=dist_tol)
-    out = K.fused_cell_grid(*args, **kw)
-    if not all(torch.equal(x, y) for x, y in zip(
-            (out[0], out[1], out[2], out[5], out[6]),
-            (pol.m_knots, pol.c_knots, dist, dit, ddiff))):
-        raise AssertionError("fine fused_cell_grid is not bitwise the "
-                             "reference kernels' chain")
-    N, A, D = 15, model.a_grid.shape[1], d0.shape[1]
-    rec = dict(dtype=str(dt), layout=K.fused_cell_grid_layout(
-                   N, A, D, False, dt),
-               egm_iters=out[3].tolist(), dist_iters=out[5].tolist(),
-               bitwise_vs_reference_kernels=True)
-    rec["kernel_ms"] = cuda_ms(lambda: K.fused_cell_grid(*args, **kw),
-                               reps=2)
-    rec["no_dist_ms"] = cuda_ms(lambda: K.fused_cell_grid(
-        *args, **kw, dist_max_iter=0), reps=2)
-    rec["dist_ns_per_step"] = 1e6 * (rec["kernel_ms"] - rec["no_dist_ms"]) \
-        / int(out[5][0])
-    rec["bound_ms"], rec["bound_by"] = fused_bound(dt, 1, model, out[3],
-                                                   out[5], False)
-    log("fine_fused", **rec)
-    return rec
+    A = D = 1000
+    recs = []
+    for N in FUSED_CLUSTER_STATES:
+        model = H.stack_models([H.build_simple_model(
+            labor_states=N, a_count=A, dist_count=D, labor_ar=0.6, dtype=dt,
+            device=dev)])
+        r = torch.tensor([0.04], dtype=dt, device=dev)
+        R = 1.0 + r
+        W = firm.wage_rate(firm.k_to_l_from_r(r, 0.36, 0.08), 0.36)
+        p0 = H.initial_policy(model)
+        sc = H._scalars(R, W, model, 0.96, 3.0)
+        d0 = H.initial_distribution(model)
+        args = (p0.m_knots, p0.c_knots, model.a_grid, model.dist_grid,
+                model.labor_levels, model.transition, sc,
+                torch.zeros_like(model.labor_levels), d0)
+        kw = dict(tol=egm_tol, dist_tol=dist_tol)
+        layout = K.fused_cell_grid_layout(N, A, D, False, dt)
+        if layout != "cluster":
+            raise AssertionError(f"the fused lane of {N} states at the fine "
+                                 f"width takes the {layout} layout")
+        out = K.fused_cell_grid(*args, **kw)
+        m, c, eit, ediff = K.egm_policy_grid(*args[:3], model.labor_levels,
+                                             model.transition, sc, egm_tol)
+        tr = H.wealth_transition(H.HouseholdPolicy(m, c), R, W, model)
+        dist, dit, ddiff = K.stationary_lottery_grid(
+            tr.idx, tr.weight, model.transition, d0, dist_tol)
+        if not all(torch.equal(x, y) for x, y in zip(
+                out, (m, c, dist, eit, ediff, dit, ddiff))):
+            raise AssertionError(f"fused cluster at N={N} is not bitwise "
+                                 f"the reference kernels' chain")
+        if not all(torch.equal(x, y) for x, y in zip(
+                K.fused_cell_grid(*args, **kw, force_global=True), out)):
+            raise AssertionError(f"fused cluster at N={N} is not bitwise "
+                                 f"its global layout")
+        rec = dict(dtype=str(dt), N=N, A=A, D=D, layout=layout,
+                   egm_blocks_holding_states=int(K._library(
+                       "egm_policy_grid").egm_policy_grid_cluster_blocks(N)),
+                   egm_iters=out[3].tolist(), dist_iters=out[5].tolist(),
+                   bitwise_vs_reference_kernels=True,
+                   bitwise_global_cluster=True)
+        log("fine_fused_states", **rec)
+        recs.append(rec)
+    return recs
 
 
 def _lean_fields(res, lane=None):
@@ -1141,69 +1253,88 @@ def _lean_fields(res, lane=None):
             for f, v in res._asdict().items()}
 
 
+def _golden_solve(dev, fn, *a, kernel="reference", **kw):
+    """One lean solve on the card, its launch counters set to 0 just
+    before it and read just after: one launch of each kernel of the path
+    per trip, none of any other.  Returns (result, wall s, launches)."""
+    from aiyagari_hark_tpu_torch.ops import kernels as K
+
+    K.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn(*a, device=dev, kernel=kernel, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    trips = int(res.bisect_iters.max())
+    for name, n in launches.items():
+        want = trips if name in PATH_KERNELS[kernel] else 0
+        if n != want:
+            raise AssertionError(f"a {kernel} solve of {trips} trips "
+                                 f"launched {name} {n} times")
+    return res, wall, launches
+
+
+def _golden_cell_check(tag, res, dt, g, **fields):
+    """A lean solve against its JAX golden record under the slice rule:
+    r* within FINE_RSTAR_PCT, trips equal, and in float64 the EGM and
+    distribution steps equal and CONVERGED.  Logs the comparison."""
+    from aiyagari_hark_tpu_torch.solver_health import status_name
+
+    got = {f: float(v) if v.is_floating_point() else int(v)
+           for f, v in _lean_fields(res).items()}
+    dr = abs(100.0 * got["r_star"] - g["r_star_pct"])
+    counts = ("bisect_iters", "egm_iters", "dist_iters")
+    log(tag, dtype=str(dt), dr_star_pct=dr,
+        status_name=status_name(got["status"]),
+        golden={k: g[k] for k in ("r_star_pct",) + counts}, **fields, **got)
+    if not dr <= FINE_RSTAR_PCT[dt]:
+        raise AssertionError(f"{tag} {dt} r* is {dr} pct from the golden, "
+                             f"above {FINE_RSTAR_PCT[dt]}")
+    same = counts if dt == torch.float64 else counts[:1]
+    if any(got[k] != g[k] for k in same):
+        raise AssertionError(f"{tag} {dt} counts {[got[k] for k in same]} "
+                             f"vs the golden's {[g[k] for k in same]}")
+    if dt == torch.float64 and status_name(got["status"]) != "CONVERGED":
+        raise AssertionError(f"{tag} f64 status {status_name(got['status'])}")
+
+
 def phase_fine_equilibrium(dev):
     """The fine configuration solved end to end on the card
     (solve_calibration_lean(**fine_grid_kwargs()), the path a user
-    calls), float64 and float32, against tests/data/torch_fine_golden.json
-    (the JAX package on the CPU): r* within FINE_RSTAR_PCT, trips equal,
-    and in float64 the EGM and distribution steps equal and CONVERGED.
-    Then the four lanes of bench.py's fine-lanes run (CRRA 1, rho 0, 0.3,
-    0.6, 0.9) as one solve_cells_lean batch in float64, each lane bitwise
-    its C=1 solve and within 1e-6 pct of the golden.  Each solve's
-    counters are set to 0 just before it and read just after: one launch
-    of each reference kernel per trip.  Returns the launches by run."""
+    calls), float64 and float32, under the reference kernels and under
+    kernel="fused" (the fused kernel's cluster layout), against
+    tests/data/torch_fine_golden.json (the JAX package on the CPU): r*
+    within FINE_RSTAR_PCT, trips equal, and in float64 the EGM and
+    distribution steps equal and CONVERGED.  Then the four lanes of
+    bench.py's fine-lanes run (CRRA 1, rho 0, 0.3, 0.6, 0.9) as one
+    solve_cells_lean batch in float64, each lane bitwise its C=1 solve and
+    within 1e-6 pct of the golden.  Each solve's counters are set to 0
+    just before it and read just after: one launch of each kernel of its
+    path per trip.  Returns the launches by run."""
     from aiyagari_hark_tpu_torch.models.equilibrium import (
         solve_calibration_lean, solve_cells_lean)
-    from aiyagari_hark_tpu_torch.ops import kernels as K
-    from aiyagari_hark_tpu_torch.solver_health import status_name
     from aiyagari_hark_tpu_torch.utils.config import fine_grid_kwargs
 
     with open(FINE_GOLDEN) as f:
         golden = json.load(f)
 
     def solve(fn, *a, **kw):
-        K.reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = fn(*a, device=dev, **kw)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = dict(K.LAUNCHES)
-        trips = int(res.bisect_iters.max())
-        for name, n in launches.items():
-            want = trips if name in PATH_KERNELS["reference"] else 0
-            if n != want:
-                raise AssertionError(f"a fine solve of {trips} trips "
-                                     f"launched {name} {n} times")
-        return res, wall, launches
+        return _golden_solve(dev, fn, *a, **kw)
 
     out = {}
     kw = fine_grid_kwargs()
     crra, rho = kw.pop("crra"), kw.pop("labor_ar")
-    for dt in FINE_DTYPES:
-        g = golden["fine"][str(dt).rsplit(".", 1)[-1]]
-        res, wall, launches = solve(solve_calibration_lean, crra, rho,
-                                    dtype=dt, **kw)
-        got = {f: float(v) if v.is_floating_point() else int(v)
-               for f, v in _lean_fields(res).items()}
-        dr = abs(100.0 * got["r_star"] - g["r_star_pct"])
-        counts = ("bisect_iters", "egm_iters", "dist_iters")
-        log("fine_equilibrium", dtype=str(dt), wall_s=wall,
-            launches=launches, dr_star_pct=dr,
-            status_name=status_name(got["status"]),
-            golden={k: g[k] for k in ("r_star_pct",) + counts}, **got)
-        if not dr <= FINE_RSTAR_PCT[dt]:
-            raise AssertionError(f"fine {dt} r* is {dr} pct from the "
-                                 f"golden, above {FINE_RSTAR_PCT[dt]}")
-        same = counts if dt == torch.float64 else counts[:1]
-        if any(got[k] != g[k] for k in same):
-            raise AssertionError(f"fine {dt} counts "
-                                 f"{[got[k] for k in same]} vs the "
-                                 f"golden's {[g[k] for k in same]}")
-        if dt == torch.float64 and status_name(got["status"]) != "CONVERGED":
-            raise AssertionError(f"fine f64 status "
-                                 f"{status_name(got['status'])}")
-        out[f"fine_{str(dt).rsplit('.', 1)[-1]}"] = launches
+    for kernel in ("reference", "fused"):
+        for dt in FINE_DTYPES:
+            name = str(dt).rsplit(".", 1)[-1]
+            res, wall, launches = solve(solve_calibration_lean, crra, rho,
+                                        dtype=dt, kernel=kernel, **kw)
+            _golden_cell_check("fine_equilibrium", res, dt,
+                               golden["fine"][name], kernel=kernel,
+                               wall_s=wall, launches=launches)
+            out[f"fine_{name}" if kernel == "reference"
+                else f"fine_fused_{name}"] = launches
 
     dt = torch.float64
     cells = [(g["crra"], g["labor_ar"], 0.2) for g in golden["lanes"]]
@@ -1229,6 +1360,151 @@ def phase_fine_equilibrium(dev):
         egm_iters=res4.egm_iters.tolist(),
         dist_iters=res4.dist_iters.tolist())
     return out
+
+
+# Config 1 and the many-state cells (tests/data/torch_fine_golden.json),
+# and the distribution kernels past 16 labor states: the bound 32 (N=17)
+# and the wide mix (N=40), at the golden cells' width (D=500: the lottery
+# kernel's cluster, the fused kernel's global layout) and at one that one
+# block holds (D=40: shared), each against its global layout.
+MANY_KERNEL_STATES = (17, 40)
+MANY_KERNEL_DISTS = (500, 40)
+
+
+def _layouts(N, A, D, dt) -> dict:
+    """The layout each kernel takes for a lane of N states, A assets and
+    D wealth points, and the lane's bound on the states."""
+    from aiyagari_hark_tpu_torch.ops import kernels as K
+
+    return dict(egm=K.egm_policy_grid_layout(N, A, dt),
+                lottery=K.stationary_lottery_grid_layout(D, N, dt),
+                fused=K.fused_cell_grid_layout(N, A, D, False, dt),
+                state_bound=K.lottery_state_bound(N))
+
+
+def many_state_kernel_check(dev):
+    """The lottery and fused kernels at N = 17 and 40 (float64, r = 4 %,
+    C=1, A=32), D = 500 and 40: each default layout and its global layout
+    bitwise the plain version on the card (the lottery kernel's is the
+    fused plain version's distribution, on the EGM kernel's policy, which
+    is bitwise the plain EGM loop's); at D=500 both layouts timed in
+    turns, ns per step, the bounds.  Returns the records."""
+    from aiyagari_hark_tpu_torch.models import firm
+    from aiyagari_hark_tpu_torch.models import household as H
+    from aiyagari_hark_tpu_torch.ops import kernels as K
+
+    dt = torch.float64
+    egm_tol, dist_tol = INNER_TOL[dt]
+    recs = []
+    for N in MANY_KERNEL_STATES:
+        for D in MANY_KERNEL_DISTS:
+            model = H.stack_models([H.build_simple_model(
+                labor_states=N, a_count=32, dist_count=D, labor_ar=0.6,
+                dtype=dt, device=dev)])
+            r = torch.tensor([0.04], dtype=dt, device=dev)
+            R = 1.0 + r
+            W = firm.wage_rate(firm.k_to_l_from_r(r, 0.36, 0.08), 0.36)
+            p0 = H.initial_policy(model)
+            sc = H._scalars(R, W, model, 0.96, 3.0)
+            m, c, eit, ediff = K.egm_policy_grid(
+                p0.m_knots, p0.c_knots, model.a_grid, model.labor_levels,
+                model.transition, sc, egm_tol)
+            trans = H.wealth_transition(H.HouseholdPolicy(m, c), R, W, model)
+            d0 = H.initial_distribution(model)
+            largs = (trans.idx, trans.weight, model.transition, d0, dist_tol)
+            fargs = (p0.m_knots, p0.c_knots, model.a_grid, model.dist_grid,
+                     model.labor_levels, model.transition, sc,
+                     torch.zeros_like(model.labor_levels), d0)
+            fkw = dict(tol=egm_tol, dist_tol=dist_tol)
+            # the fused plain version is the plain EGM loop, the
+            # transition and the lottery's plain version: the lottery's
+            # is its part, on the kernel's policy once that is its own
+            t0 = time.perf_counter()
+            fplain = K.fused_cell_grid_plain(*fargs, egm_tol,
+                                             dist_tol=dist_tol)
+            torch.cuda.synchronize()
+            fplain_ms = 1e3 * (time.perf_counter() - t0)
+            if not (torch.equal(fplain[0], m) and torch.equal(fplain[1], c)):
+                raise AssertionError(f"egm_policy_grid at N={N} is not "
+                                     f"bitwise its plain version")
+            lplain = (fplain[2], fplain[5], fplain[6])
+            lay = _layouts(N, 32, D, dt)
+            runs = {"lottery": (lambda g: K.stationary_lottery_grid(
+                        *largs, force_global=g), lplain),
+                    "fused": (lambda g: K.fused_cell_grid(
+                        *fargs, **fkw, force_global=g), fplain)}
+            for name, (run, plain) in runs.items():
+                for g in (False, True):
+                    got = run(g)
+                    if not all(torch.equal(x, y) for x, y in zip(got, plain)):
+                        raise AssertionError(
+                            f"{name} kernel at N={N}, D={D} "
+                            f"({'global' if g else lay[name]} layout) is not "
+                            f"bitwise its plain version")
+            rec = dict(dtype=str(dt), N=N, A=32, D=D, layouts=lay,
+                       dist_iters=lplain[1].tolist(),
+                       egm_iters=fplain[3].tolist(),
+                       bitwise_vs_plain=True, bitwise_global=True,
+                       fused_plain_ms=fplain_ms)
+            if D == MANY_KERNEL_DISTS[0]:
+                steps = int(lplain[1][0])
+                for name, (run, _) in runs.items():
+                    ms, gms = paired_ms(lambda: run(False), lambda: run(True),
+                                        reps=3)
+                    rec[f"{name}_ms"], rec[f"{name}_global_ms"] = ms, gms
+                rec["lottery_ns_per_step"] = 1e6 * rec["lottery_ms"] / steps
+                rec["lottery_global_ns_per_step"] = \
+                    1e6 * rec["lottery_global_ms"] / steps
+                rec["lottery_bound_ms"], rec["lottery_bound_by"] = \
+                    dist_bound(dt, 1, model, lplain[1])
+                rec["fused_bound_ms"], rec["fused_bound_by"] = fused_bound(
+                    dt, 1, model, fplain[3], fplain[5], False)
+            log("many_states_kernels", **rec)
+            recs.append(rec)
+    return recs
+
+
+def phase_many_states(dev):
+    """Any number of labor states on the card: the distribution kernels at
+    N = 17 and 40 (``many_state_kernel_check``), then BASELINE.json config
+    1 (baseline_cell_kwargs(): N=7, A=100, D=500) in float64 and float32
+    and the many-state cells (CRRA 3, rho 0.6, A=32, D=500; N = 17, 21, 40
+    in float64, 17 in float32) through solve_calibration_lean on the card
+    against tests/data/torch_fine_golden.json under the slice rule, each
+    with the layout each kernel takes, one launch of each reference kernel
+    a trip.  Returns (launches by run, the kernel records)."""
+    from aiyagari_hark_tpu_torch.models.equilibrium import (
+        solve_calibration_lean)
+    from aiyagari_hark_tpu_torch.utils.config import baseline_cell_kwargs
+
+    with open(FINE_GOLDEN) as f:
+        golden = json.load(f)
+    records = many_state_kernel_check(dev)
+    out = {}
+    base = baseline_cell_kwargs()
+    crra, rho = base.pop("crra"), base.pop("labor_ar")
+    for dt in FINE_DTYPES:
+        name = str(dt).rsplit(".", 1)[-1]
+        res, wall, launches = _golden_solve(dev, solve_calibration_lean,
+                                            crra, rho, dtype=dt, **base)
+        _golden_cell_check("baseline_equilibrium", res, dt,
+                           golden["baseline"][name], wall_s=wall,
+                           launches=launches, layouts=_layouts(
+                               base["labor_states"], base["a_count"],
+                               base["dist_count"], dt))
+        out[f"baseline_{name}"] = launches
+    for g in golden["many_states"]:
+        dt = getattr(torch, g["dtype"])
+        width = {k: g[k] for k in ("labor_states", "a_count", "dist_count")}
+        res, wall, launches = _golden_solve(
+            dev, solve_calibration_lean, g["crra"], g["labor_ar"], dtype=dt,
+            **width)
+        _golden_cell_check("many_states_equilibrium", res, dt, g,
+                           wall_s=wall, launches=launches, layouts=_layouts(
+                               width["labor_states"], width["a_count"],
+                               width["dist_count"], dt), **width)
+        out[f"labor_states_{g['labor_states']}_{g['dtype']}"] = launches
+    return out, records
 
 
 def phase_cell(dev, golden, kernel="reference", precision="reference"):
@@ -1740,6 +2016,7 @@ KS_TOL = dict(intercept=1e-9, r_star_pct=1e-7, saving_rate_pct=1e-6,
               den_haan_pct=1e-6)
 KS_F32_R_PCT = 1e-2     # float32 r* within 1 bp of the float64 golden
 KS_PANEL_R_PP = 0.2     # the panel's r* within 0.2 pp of the golden's
+KS_PROFILE_PERIODS = 350     # periods of the long profiled KS window
 KS_BAND_Z = 3.0         # the fixed-rule panel inside the 32-seed band
 # A true-KS calibration (Krusell-Smith 1998's unemployment rates) whose
 # exact-count employment moves every period.
@@ -2066,19 +2343,24 @@ def phase_ks(dev):
                                    torch.Generator(device=dev).manual_seed(3)),
             torch.Generator(device=dev).manual_seed(4)),
     }
+    # the profiled window: 100 periods, then KS_PROFILE_PERIODS (cut from
+    # 1100 for the script's time limit; launches a period are the same
+    # every period)
+    long_n = KS_PROFILE_PERIODS
     for name, run in runs.items():
         short, busy_s, wall_s_ = _device_profile(lambda: run(100))
-        long_, busy_l, wall_l = _device_profile(lambda: run(1100))
+        long_, busy_l, wall_l = _device_profile(lambda: run(long_n))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        run(1100)
+        run(long_n)
         torch.cuda.synchronize()
         plain = time.perf_counter() - t0
-        per[name] = {"launches_per_period": (long_ - short) / 1000.0,
-                     "device_busy_s_1100": busy_l,
-                     "profiled_wall_s_1100": wall_l,
-                     "unprofiled_wall_s_1100": plain,
-                     "ms_per_period": 1e3 * plain / 1100,
+        per[name] = {"launches_per_period": (long_ - short) / (long_n - 100),
+                     "periods": long_n,
+                     "device_busy_s_long": busy_l,
+                     "profiled_wall_s_long": wall_l,
+                     "unprofiled_wall_s_long": plain,
+                     "ms_per_period": 1e3 * plain / long_n,
                      "idle_share_profiled": 1.0 - busy_l / wall_l,
                      "idle_share_unprofiled": 1.0 - busy_l / plain}
     egm_l, egm_busy, egm_wall = _device_profile(
@@ -4384,8 +4666,25 @@ def main() -> int:
         torch=torch.__version__, cuda=torch.version.cuda,
         allow_tf32=[torch.backends.cuda.matmul.allow_tf32,
                     torch.backends.cudnn.allow_tf32])
-    build_s = K.build_libraries()
-    log("build", seconds=build_s)
+    # the kernels build while phase 11 runs: its path launches none of
+    # them, so the build's wall overlaps it (the script's time limit)
+    build = {}
+
+    def build_kernels():
+        try:
+            build["seconds"] = K.build_libraries()
+        except BaseException as e:            # re-raised after the join
+            build["error"] = e
+
+    build_thread = threading.Thread(target=build_kernels)
+    build_thread.start()
+    try:
+        launches_ks = phase_ks(dev)
+    finally:
+        build_thread.join()
+    if "error" in build:
+        raise build["error"]
+    log("build", seconds=build["seconds"], overlapped_with="phase 11")
     for name, text in K.BUILD_LOGS.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -4419,6 +4718,7 @@ def main() -> int:
     phase_profile(dev, "fused")
     fine_egm, fine_lottery, fine_fused = phase_fine(dev)
     launches_fine = phase_fine_equilibrium(dev)
+    launches_many, many_records = phase_many_states(dev)
     launches_c1 = phase_cell(dev, golden)
     launches_c1.update({k: v for k, v in phase_cell(dev, golden,
                                                     "fused").items() if v})
@@ -4426,7 +4726,6 @@ def main() -> int:
     phase_illinois(dev, golden)
     engine = phase_engine(dev, golden, sweeps)
     fam_records, families = phase_families(dev, golden)
-    launches_ks = phase_ks(dev)
     launches_ext, ext_pairs = phase_extensions(dev)
     launches_pf = phase_portfolio(dev)
     launches_dur = phase_durability(dev)
@@ -4444,6 +4743,9 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"aiyagari_hark_tpu_torch/ops/csrc/{K.SOURCES[name]}",
+            "sources": [f"aiyagari_hark_tpu_torch/ops/csrc/{K.SOURCES[lib]}"
+                        for lib in (name, f"{name}_wide")
+                        if lib in K.SOURCES],
             "replaces": REPLACES[name][0],
             "replaces_single_lane": REPLACES[name][1],
             "launches": launches[name], "launches_f32": launches32[name],
@@ -4466,11 +4768,16 @@ def main() -> int:
     kernels[0]["fine"] = fine_egm
     kernels[1]["fine"] = fine_lottery
     kernels[2]["fine"] = fine_fused
-    # phase 7: each kernel's launches per fine solve (f64, f32, the
-    # four-lane batch)
+    # phase 7: each kernel's launches per fine solve (f64, f32, each
+    # under both kernel policies, the four-lane batch), per config-1 and
+    # many-state solve; the two distribution kernels past 16 states
     for k in kernels:
         k["launches_fine"] = {run: n[k["name"]]
                               for run, n in launches_fine.items()}
+        k["launches_many_states"] = {run: n[k["name"]]
+                                     for run, n in launches_many.items()}
+    for k in kernels[1:]:
+        k["many_states"] = many_records
     # the ladders' launches per f64 sweep (the tail mode's: compact)
     for k in kernels[:2]:
         for path in ("mixed_float64", "fast_float64", "fused_mixed_float64",

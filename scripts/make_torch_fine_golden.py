@@ -8,9 +8,13 @@ Runs the JAX package's ``solve_calibration_lean`` on the CPU at
 15 labor states, 1000 wealth points; CRRA 3, rho 0.6) in float64 and in
 float32, then the four cells of ``bench.py``'s ``_timed_fine_lanes``
 (CRRA 1, rho 0, 0.3, 0.6, 0.9 at the same width), each solved alone, in
-float64.  Writes ``tests/data/torch_fine_golden.json``: for each cell and
-dtype r*, capital, labor, bisection trips, summed EGM and distribution
-steps and the status code.
+float64.  Then BASELINE.json config 1 (``utils.config.
+baseline_cell_kwargs()``: CRRA 3, rho 0.6, 7 labor states, 100 assets, 500
+wealth points) in float64 and float32, and the many-state cells (CRRA 3,
+rho 0.6, 32 assets, 500 wealth points) at 17, 21 and 40 labor states in
+float64 and at 17 in float32.  Writes ``tests/data/torch_fine_golden.json``:
+for each cell and dtype r*, capital, labor, bisection trips, summed EGM
+and distribution steps and the status code.
 
 Each record's ``jax_cpu_seconds`` is the JAX solve's wall on the CPU it
 ran on, a second, warm call; neither it nor anything else here is the
@@ -29,6 +33,11 @@ OUT = os.path.join(ROOT, "tests", "data", "torch_fine_golden.json")
 
 LANE_CRRA = 1.0
 LANE_RHOS = (0.0, 0.3, 0.6, 0.9)
+# the many-state cells: (labor states, dtypes) at MANY_WIDTH
+MANY_STATES = ((17, ("float64", "float32")), (21, ("float64",)),
+               (40, ("float64",)))
+MANY_CELL = dict(crra=3.0, labor_ar=0.6)
+MANY_WIDTH = dict(a_count=32, dist_count=500)
 
 
 def solve(crra, rho, dtype, width):
@@ -61,12 +70,14 @@ def main():
     jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
 
-    from aiyagari_hark_tpu.utils.config import fine_grid_kwargs
+    from aiyagari_hark_tpu.utils.config import (baseline_cell_kwargs,
+                                                fine_grid_kwargs)
 
+    dtypes = {"float64": jnp.float64, "float32": jnp.float32}
     kw = fine_grid_kwargs()
     crra, rho = kw.pop("crra"), kw.pop("labor_ar")
     out = dict(width=kw, fine={}, lanes=[])
-    for name, dt in (("float64", jnp.float64), ("float32", jnp.float32)):
+    for name, dt in dtypes.items():
         rec, s = solve(crra, rho, dt, kw)
         out["fine"][name] = rec
         print(f"fine {name}: r*={rec['r_star_pct']!r} pct, "
@@ -77,6 +88,24 @@ def main():
         out["lanes"].append(rec)
         print(f"lane rho={r}: r*={rec['r_star_pct']!r} pct, "
               f"{rec['bisect_iters']} trips, {s:.1f} s")
+    base = baseline_cell_kwargs()
+    bcrra, brho = base.pop("crra"), base.pop("labor_ar")
+    out["baseline"] = dict(width=base)
+    for name, dt in dtypes.items():
+        rec, s = solve(bcrra, brho, dt, base)
+        out["baseline"][name] = rec
+        print(f"baseline {name}: r*={rec['r_star_pct']!r} pct, "
+              f"{rec['bisect_iters']} trips, {s:.1f} s")
+    out["many_states"] = []
+    for n, names in MANY_STATES:
+        width = dict(labor_states=n, **MANY_WIDTH)
+        for name in names:
+            rec, s = solve(MANY_CELL["crra"], MANY_CELL["labor_ar"],
+                           dtypes[name], width)
+            out["many_states"].append(dict(dtype=name, **width, **rec))
+            print(f"N={n} {name}: r*={rec['r_star_pct']!r} pct, "
+                  f"{rec['bisect_iters']} trips, {rec['egm_iters']} EGM "
+                  f"and {rec['dist_iters']} distribution steps, {s:.1f} s")
     tmp = f"{OUT}.{os.getpid()}.tmp"
     with open(tmp, "w") as f:
         json.dump(out, f, indent=1)

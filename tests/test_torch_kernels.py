@@ -415,9 +415,10 @@ def test_lottery_push_tail_is_bitwise_the_padded_gather(dtype):
 # Byte counts of stationary_lottery_grid.cu at three lanes (lottery_device.
 # cuh: lottery_csr_bytes + lottery_iterate_bytes for one block, with and
 # without the best iterate; lottery_cluster_bytes with no staging for each
-# block of an 8-block cluster): (D, N, itemsize) -> (full, no_best, cluster)
+# block of an 8-block cluster; the transition padded to the lane's bound,
+# 8 at N=7, 16 at N=15): (D, N, itemsize) -> (full, no_best, cluster)
 LOTTERY_BYTES = {
-    (500, 7, 8): (212_080, 184_080, 17_952),      # the paper's width
+    (500, 7, 8): (210_544, 182_544, 16_416),      # the paper's width
     (1000, 15, 8): (902_112, 782_112, 69_616),    # the fine width
     (1000, 15, 4): (541_088, 481_088, 38_592),
 }
@@ -437,7 +438,7 @@ def test_lottery_layout_takes_the_cluster_only_past_one_block(
     sizes = {1: full, 0: no_best}
     assert K.LAYOUTS[K._lottery_layout(sizes.__getitem__, force_global,
                                        cluster)] == layout
-    # a kernel without a cluster layout (fused_cell_grid) never takes it
+    # a lane offered no cluster (a fused lane with a tail) never takes it
     assert K.LAYOUTS[K._lottery_layout(sizes.__getitem__,
                                        force_global)] != "cluster"
 
@@ -445,7 +446,7 @@ def test_lottery_layout_takes_the_cluster_only_past_one_block(
 @pytest.mark.parametrize("cluster, layout", [
     (K.MAX_WORKSPACE_SHARED_BYTES, "cluster"),
     (K.MAX_WORKSPACE_SHARED_BYTES + 1, "global"),
-    (2 ** 64 - 1, "global"),          # N outside the kernel's 1..16
+    (2 ** 64 - 1, "global"),          # staged sources that would not pack
 ])
 def test_lottery_cluster_needs_its_fixed_part_to_fit(cluster, layout):
     sizes = {1: 902_112, 0: 782_112}
@@ -567,3 +568,166 @@ def test_egm_layout_never_takes_the_cluster_with_a_tail(shared, cluster,
                                        tail=True)] == layout
     assert K.EGM_LAYOUTS[K._egm_layout(shared, cluster, True,
                                        tail=True)] == "global"
+
+
+# ---------------------------------------------------------------------------
+# Any number of labor states; the fused kernel's cluster layout.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("N, bound", [
+    (1, 8), (7, 8), (8, 8), (9, 16), (15, 16), (16, 16), (17, 32), (21, 32),
+    (32, 32), (33, 0), (40, 0), (200, 0),
+])
+def test_lottery_state_bound_is_taken_by_size(N, bound):
+    """The distribution loops' bound on the labor states: 8, 16 or 32 (a
+    row's sums in registers), 0 past 32 (the wide mix)."""
+    assert K.lottery_state_bound(N) == bound
+    assert bound == 0 or N <= bound
+    assert bound in K.LOTTERY_STATE_BOUNDS + (0,)
+
+
+class _FakeLib:
+    """The byte counts a kernel library exports, given as numbers; each
+    call records its arguments."""
+
+    def __init__(self, **sizes):
+        self.sizes = sizes
+        self.calls = []
+
+    def __getattr__(self, name):
+        def fn(*args):
+            self.calls.append((name, args))
+            v = self.sizes[name]
+            return v(*args) if callable(v) else v
+        return fn
+
+
+FUSED_FINE_F64 = dict(   # N=15, A=1000, D=1000, float64
+    fused_cell_grid_workspace_bytes=lambda N, A, D, nb, tail, f64, best:
+        1_512_872,
+    fused_cell_grid_cluster_bytes=lambda N, A, D, nb, tail, f64, stage:
+        max(122_144, 69_616 + 12 * stage),
+    fused_cell_grid_cluster_lottery_bytes=69_616,
+)
+
+
+@pytest.mark.parametrize("sizes, tail, force_global, layout, stage", [
+    (FUSED_FINE_F64, False, False, "cluster", 13_484),
+    (FUSED_FINE_F64, True, False, "global", 0),     # never with a tail
+    (FUSED_FINE_F64, False, True, "global", 0),     # never under force
+    # the paper's width fits one block: shared, never the cluster
+    (dict(fused_cell_grid_workspace_bytes=lambda *a: 210_544 if a[-1]
+          else 182_544, fused_cell_grid_cluster_bytes=16_416,
+          fused_cell_grid_cluster_lottery_bytes=16_416),
+     False, False, "shared", 0),
+    (dict(fused_cell_grid_workspace_bytes=lambda *a: 240_000 if a[-1]
+          else 200_000, fused_cell_grid_cluster_bytes=16_416,
+          fused_cell_grid_cluster_lottery_bytes=16_416),
+     False, False, "shared_best_in_output", 0),
+    # the cluster cannot take the lane (~0) or its blocks overflow
+    (dict(fused_cell_grid_workspace_bytes=2_000_000,
+          fused_cell_grid_cluster_bytes=2 ** 64 - 1,
+          fused_cell_grid_cluster_lottery_bytes=69_616),
+     False, False, "global", 0),
+    (dict(fused_cell_grid_workspace_bytes=2_000_000,
+          fused_cell_grid_cluster_bytes=K.MAX_WORKSPACE_SHARED_BYTES + 16,
+          fused_cell_grid_cluster_lottery_bytes=69_616),
+     False, False, "global", 0),
+])
+def test_fused_layout_takes_the_cluster_only_past_one_block(
+        monkeypatch, sizes, tail, force_global, layout, stage):
+    lib = _FakeLib(**sizes)
+    monkeypatch.setattr(K, "_library", lambda name: lib)
+    got, got_stage = K._fused_layout(15, 1000, 1000, tail, torch.float64,
+                                     force_global)
+    assert (K.LAYOUTS[got], got_stage) == (layout, stage)
+    # every byte count is asked under the lane's bound on the states
+    assert all(args[3] == 16 for name, args in lib.calls
+               if name != "fused_cell_grid_cluster_lottery_bytes")
+    assert all(args[2] == 16 for name, args in lib.calls
+               if name == "fused_cell_grid_cluster_lottery_bytes")
+
+
+@pytest.mark.parametrize("N, bound", [(7, 8), (17, 32), (40, 0)])
+def test_stationary_layout_asks_its_bytes_under_the_lanes_bound(
+        monkeypatch, N, bound):
+    lib = _FakeLib(stationary_lottery_grid_shared_bytes=10_000_000,
+                   stationary_lottery_grid_cluster_bytes=100_000)
+    monkeypatch.setattr(K, "_library", lambda name: lib)
+    layout, stage = K._stationary_layout(500, N, torch.float64, False)
+    assert K.LAYOUTS[layout] == "cluster"
+    assert stage == K._lottery_stage(100_000, 500, N, 8)
+    assert lib.calls and all(args[2] == bound for _, args in lib.calls)
+
+
+@pytest.mark.parametrize("name, D, N, K_, match", [
+    ("stationary_lottery_grid", 1 << 20, 64, None, "PAIRWISE_LEAVES_MAX"),
+    ("fused_cell_grid", 1 << 20, 64, 33, "PAIRWISE_LEAVES_MAX"),
+    ("fused_cell_grid", 1, 7, 33, "FUSED_MIN_WEALTH_POINTS"),
+    ("fused_cell_grid", 500, 4096, 4097, "PAIRWISE_LEAVES_MAX"),
+])
+def test_wrapper_limits_raise_naming_the_limit(name, D, N, K_, match):
+    with pytest.raises(ValueError, match=match):
+        K._check_lane_limits(name, D, N, K_)
+
+
+@pytest.mark.parametrize("D, N, K_", [
+    (1000, 15, 1001), (500, 40, 33), (500, 200, 33), (32768, 1024, None),
+    (2, 1, 2),
+])
+def test_wrapper_limits_pass_what_the_kernels_run(D, N, K_):
+    K._check_lane_limits("fused_cell_grid" if K_ else
+                         "stationary_lottery_grid", D, N, K_)
+
+
+@pytest.mark.parametrize("N", [17, 21, 40])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_many_states_fused_is_bitwise_the_reference_chain(N, dtype):
+    """Past 16 labor states on CPU tensors: ``fused_cell_grid`` is bitwise
+    ``egm_policy_grid``, then ``wealth_transition``, then
+    ``stationary_lottery_grid``, each wrapper on its plain version."""
+    model = th.stack_models([th.build_simple_model(
+        labor_states=N, a_count=12, dist_count=40, labor_ar=0.6,
+        dtype=dtype, device="cpu")] * 2)
+    r = torch.tensor([0.035, 0.04], dtype=dtype)
+    R, W = 1.0 + r, torch.tensor([1.1, 1.2], dtype=dtype)
+    egm_tol, dist_tol = (1e-6, 1e-11) if dtype == torch.float64 \
+        else (1e-5, 1e-8)
+    p0 = th.initial_policy(model)
+    sc = th._scalars(R, W, model, 0.96, 3.0)
+    m, c, eit, ediff = K.egm_policy_grid(p0.m_knots, p0.c_knots,
+                                         model.a_grid, model.labor_levels,
+                                         model.transition, sc, egm_tol)
+    trans = th.wealth_transition(th.HouseholdPolicy(m, c), R, W, model)
+    d0 = th.initial_distribution(model)
+    dist, dit, ddiff = K.stationary_lottery_grid(
+        trans.idx, trans.weight, model.transition, d0, dist_tol)
+    out = K.fused_cell_grid(p0.m_knots, p0.c_knots, model.a_grid,
+                            model.dist_grid, model.labor_levels,
+                            model.transition, sc,
+                            torch.zeros_like(model.labor_levels), d0,
+                            egm_tol, dist_tol=dist_tol)
+    for a, b in zip(out, (m, c, dist, eit, ediff, dit, ddiff)):
+        assert torch.equal(a, b)
+    assert bool((dit > 0).all())
+
+
+@pytest.mark.parametrize("N", [17, 40])
+def test_dist_plain_matches_dense_pallas_lane_grid_past_sixteen_states(N):
+    """The distribution kernel's plain version at a many-state lane,
+    against the TPU kernel it replaces (interpret mode), on the lottery
+    of a JAX policy."""
+    jm = jh.build_simple_model(labor_states=N, a_count=12, dist_count=24)
+    trans = _lotteries(jm, PRICES)
+    S = jnp.stack([jh.dense_wealth_operator(t, 24) for t in trans])
+    P = jnp.stack([jm.transition] * 2)
+    d0 = jnp.stack([jh.initial_distribution(jm)] * 2)
+    dist, it, diff = stationary_dense_pallas_grid(S, P, d0, 1e-10, 5000, 64,
+                                                  interpret=True)
+    td, tit, _ = K.stationary_lottery_grid(
+        torch.tensor(np.stack([np.asarray(t.idx) for t in trans])),
+        torch.tensor(np.stack([np.asarray(t.weight) for t in trans])),
+        torch.tensor(np.asarray(P)), torch.tensor(np.asarray(d0)), 1e-10,
+        5000, 64)
+    assert tit.tolist() == np.asarray(it).tolist()
+    np.testing.assert_allclose(_np(td), np.asarray(dist), **TOL_KW)
