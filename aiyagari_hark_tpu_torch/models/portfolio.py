@@ -17,7 +17,9 @@ No Pallas kernel runs on this path in the JAX package (its EGM step and
 push-forward are XLA), so here every step is plain PyTorch on the
 model's device: the household loop one host sync a step (its sup-norm
 test), the distribution one lane of ``household.
-accelerated_distribution_fixed_point`` (one sync a step).  The two
+accelerated_distribution_fixed_point``, which reads its exit every
+``household.SYNC_EVERY["cuda"]`` = 16 steps on the card (every step on
+the CPU; the steps after a lane stops change no bit).  The two
 ``einsum`` contractions run in the model dtype; ``device.resolve_device``
 keeps TF32 off on the card.
 

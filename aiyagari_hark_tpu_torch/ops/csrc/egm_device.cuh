@@ -8,7 +8,9 @@
 // iterate, which its sup-norm diff certifies.  With `tail` set (compact
 // grids) each step's A+1 knots are closed by the two-knot analytic tail
 // (household._append_analytic_tail_knots), so the policy has K = A+3 knots
-// and the extrapolation and its checks cover all of them.
+// and the extrapolation and its checks cover all of them, in one block or
+// in a cluster: a state's tail reads only that state's knots, so each
+// block closes the states it holds.
 //
 // Who runs a lane:
 //  - one thread block (kCluster = false) holding all N labor states, its
@@ -29,8 +31,10 @@
 //    computes the same diff, step count and exit decision, bit for bit.
 //
 // A plain step holds two barriers (three with the tail): one after the
-// marginal values; one that ends the step, the sup-norm's max into
-// alternating buffers, which also publishes the new knots.  The
+// marginal values; with the tail, a block barrier before each held state
+// is closed (its top knots are other threads' writes); one that ends the
+// step, the sup-norm's max into alternating buffers, which also publishes
+// the new knots.  The
 // expectation, the FOC inversion, the new knots and their distance to the
 // current ones are one pass, each thread on the knots it writes.  The
 // three iterates rotate by index, never by copy.  An Aitken step adds the
@@ -144,7 +148,8 @@ __device__ __forceinline__ int egm_other(int a, int b) {
 // is this block's workspace for S states, `red` shared scratch of
 // egm_red_elems(blockDim.x) elements; the initial knots m0l, c0l [N, K]
 // and a_l, lvl_l, P_l, s, h_l are the lane's inputs in global memory
-// (`h_l` is read only with `tail`, which a cluster does not take).
+// (`h_l` is read only with `tail`).  The tail's slope `kap` comes from
+// the lane's scalars alone, so every block of a cluster computes the same.
 template <typename T, bool kCluster>
 __device__ EgmResult<T> egm_fixed_point(
     const EgmWorkspace<T>& w, T* red, const T* m0l, const T* c0l,
@@ -331,7 +336,7 @@ __device__ EgmResult<T> egm_fixed_point(
       dl = nan_max(dl, (T)fabs(nm[q] - cm[q]));
       dl = nan_max(dl, (T)fabs(nc[q] - cc[q]));
     }
-    if (tail) {                         // a single block holds the lane
+    if (tail) {                         // each block closes its states
       __syncthreads();
       for (int sl = tid; sl < ns; sl += nthr) {
         T* m = nm + sl * K;

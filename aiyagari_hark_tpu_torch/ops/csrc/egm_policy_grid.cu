@@ -25,9 +25,9 @@
 //              a cluster cannot hold either, and under force_global.
 // With `tail` (the compact grids' coarse-to-fine ladder) every iterate is
 // closed by the two-knot analytic tail, K = A+3 knots, its slope computed
-// here and its intercept h [C, N] from the wrapper; a lane then runs in
-// one block (shared or global), never in a cluster, whose split loop has
-// no tail.
+// here and its intercept h [C, N] from the wrapper, in any of the three
+// layouts: a cluster block closes the states it holds (the fine compact
+// grid, A=851, N=15: 726 KB in f64 as one block, 104 KB per block of 8).
 // Each layout is its own instantiation, so shared memory is addressed as
 // shared and global as global; all three run the same arithmetic in the
 // same order and agree bitwise.  A plain step holds two barriers.  Lanes
@@ -79,8 +79,7 @@ egm_policy_kernel(const T* __restrict__ m0, const T* __restrict__ c0,
   constexpr bool kCl = kLayout == kCluster;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ T red[ahtt::egm_red_elems(threads_of<kLayout>())];
-  // a cluster never takes the tail (the launch refuses it)
-  const bool tl = !kCl && tail != 0;
+  const bool tl = tail != 0;
   const int K = knots_of(A, tl);
   const int NK = N * K;
   const int G = kCl ? ahtt::egm_cluster_blocks(N) : 1;
@@ -165,9 +164,8 @@ int launch(const void* m0, const void* c0, const void* a, const void* lvl,
            void* c_out, void* iters, void* diff, void* ws, int layout,
            int tail, int C, int N, int A, double tol, int max_iter,
            int accel_every, void* stream) {
-  // a lane closed by the tail runs in one block
   if (N < 1 || A < 1 || layout < kGlobal || layout > kCluster
-      || (tail && (layout == kCluster || h == nullptr))
+      || (tail && h == nullptr)
       || (layout == kCluster && (N < 2 || N > ahtt::kEgmClusterMaxN))
       || ahtt::next_pow2(2 * N * knots_of(A, tail != 0)) / 256
              > (1 << ahtt::kChunkLevels))
@@ -195,15 +193,15 @@ unsigned long long egm_policy_grid_workspace_bytes(int N, int A, int tail,
              : workspace_bytes<float>(N, A, tail != 0, false);
 }
 
-// Bytes of shared memory each block of a cluster lane takes, or ~0 where
-// the lane cannot be split over a cluster (fewer than 2 or more than 16
-// labor states, or a tail): the wrapper takes the cluster layout when the
-// lane does not fit one block but this fits.
+// Bytes of shared memory each block of a cluster lane takes, with or
+// without the tail, or ~0 where the lane cannot be split over a cluster
+// (fewer than 2 or more than 16 labor states): the wrapper takes the
+// cluster layout when the lane does not fit one block but this fits.
 unsigned long long egm_policy_grid_cluster_bytes(int N, int A, int tail,
                                                  int f64) {
-  if (tail || N < 2 || N > ahtt::kEgmClusterMaxN) return ~0ull;
-  return f64 ? workspace_bytes<double>(N, A, false, true)
-             : workspace_bytes<float>(N, A, false, true);
+  if (N < 2 || N > ahtt::kEgmClusterMaxN) return ~0ull;
+  return f64 ? workspace_bytes<double>(N, A, tail != 0, true)
+             : workspace_bytes<float>(N, A, tail != 0, true);
 }
 
 // Blocks of a cluster lane with N labor states.

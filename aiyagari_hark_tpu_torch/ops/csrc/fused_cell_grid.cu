@@ -11,12 +11,13 @@
 //
 // The phases:
 //   1. egm_device.cuh's egm_fixed_point (one block holds the lane); with
-//      `tail` (compact grids) every
-//      iterate is closed by the analytic tail (K = A+3 knots), its slope
-//      computed here, its intercept h [C, N] from the wrapper (an N x N
-//      solve that depends only on R, W and P, as in the TPU kernel);
+//      `tail` (compact grids) every iterate is closed by the analytic tail
+//      (K = A+3 knots), its slope computed here, its intercept h [C, N]
+//      from the wrapper (an N x N solve that depends only on R, W and P,
+//      as in the TPU kernel);
 //   2. household.wealth_transition on the final knots: m = R x_d + W l_n,
-//      c by rowwise interpolation (linear extrapolation past the ends),
+//      c by rowwise interpolation over all K knots (linear extrapolation
+//      past the ends; with the tail, above the knee along its segments),
 //      a' = clamp(m - c, b, x_{D-1}), bracket searchsorted(right) - 1 in
 //      [0, D-2] and right-neighbour weight clipped to [0, 1];
 //   3. the lottery grouped by target inside the kernel (no host round trip
@@ -43,7 +44,7 @@
 // and, when it fits, the best one.  At D=500, N=7, A=32 in f64 that is
 // 211 KB, so the whole lane sits in shared memory and the distribution
 // loop, nearly all of the kernel's time, reads nothing else.  A larger
-// workspace that no cluster takes (a tail, more than 16 labor states), or
+// workspace that no cluster takes (more than 16 labor states), or
 // `force_global`, puts the same layout in a wrapper-allocated global
 // workspace, with the same bits.  The kernel is
 // compiled once per layout (and per bound on the labor states), so a
@@ -51,17 +52,18 @@
 //
 // The cluster layout (3; the fine width, A=1000, N=15, D=1000: a 1.5 MB
 // workspace as one block in f64, 226 KB a block of 8 with its staged
-// lottery) runs the same phases on a cluster of kLotteryClusterMax
-// blocks:
+// lottery; the fine compact grid, A=851, D=926, with the tail) runs the
+// same phases on a cluster of kLotteryClusterMax blocks:
 //   1. egm_device.cuh's egm_fixed_point<T, true>: block r holds the labor
 //      states [r S, r S + S), S = ceil(N / 8) (a block past the states,
-//      where N < 15, holds none and joins the barriers); each block writes
-//      its states' certified knots to the outputs;
+//      where N < 15, holds none and joins the barriers), each closed by
+//      the tail under `tail`; each block writes its states' certified
+//      knots to the outputs;
 //   2. block r computes the savings policy of its own source rows
 //      [r0, r1) (lottery_cluster_span) in every state, reading each state's
-//      knots from the block that holds them through distributed shared
-//      memory, and writes bracket and weight to the lane's global
-//      workspace; a cluster barrier;
+//      K knots (tail-closed under `tail`) from the block that holds them
+//      through distributed shared memory, and writes bracket and weight to
+//      the lane's global workspace; a cluster barrier;
 //   3. the lottery grouped by target into the global workspace: each
 //      state is one warp's, state n in warp n / 8 of block n % 8, a stable
 //      counting sort in 32-source chunks (a warp match ranks a chunk's
@@ -70,8 +72,6 @@
 //   4. lottery_device.cuh's lottery_stage_rows and lottery_cluster_loop,
 //      on a LotteryClusterSmem region over the bytes phases 1-3 used (the
 //      barrier ending phase 2 ends every peer's read of them).
-// No tail: the EGM cluster loop takes none, so a compact-grid lane runs in
-// one block (shared, else global), as egm_policy_grid's does.
 //
 // What bounds it on an H100: the latency of two dependent chains of
 // block-wide steps (hundreds of EGM steps, then hundreds to thousands of
@@ -124,11 +124,10 @@ __host__ __device__ size_t workspace_bytes(int N, int A, int D, int nb,
   return ahtt::lottery_csr_bytes<T>(D, N, nb) + (sort > dist ? sort : dist);
 }
 
-// Whether a lane may take the cluster layout: no tail, 2-16 labor states
-// (the EGM cluster's), staged sources that pack into 16 bits.
-__host__ __device__ inline bool cluster_takes(int N, int D, int nb,
-                                              bool tail) {
-  return !tail && N >= 2 && N <= ahtt::kEgmClusterMaxN && D >= 2
+// Whether a lane may take the cluster layout: 2-16 labor states (the EGM
+// cluster's), staged sources that pack into 16 bits.
+__host__ __device__ inline bool cluster_takes(int N, int D, int nb) {
+  return N >= 2 && N <= ahtt::kEgmClusterMaxN && D >= 2
          && nb == ahtt::lottery_nb(N) && ahtt::lottery_cluster_packs(D, N);
 }
 
@@ -139,13 +138,15 @@ __host__ __device__ inline int cluster_sort_warps(int N) {
 }
 
 // Bytes of one cluster block's shared memory, the largest of its phases:
-// the EGM block (phase 1), the sort's cursors (phase 3), the lottery
-// region with room for `stage` staged entries (phase 4).
+// the EGM block (phase 1, K = A+3 knots a state with the tail), the sort's
+// cursors (phase 3), the lottery region with room for `stage` staged
+// entries (phase 4).
 template <typename T>
 __host__ __device__ size_t cluster_bytes(int N, int A, int D, int nb,
-                                         int stage) {
+                                         bool tail, int stage) {
   const size_t egm =
-      ahtt::egm_workspace_elems(ahtt::egm_cluster_states(N), N, A, A + 1)
+      ahtt::egm_workspace_elems(ahtt::egm_cluster_states(N), N, A,
+                                A + (tail ? 3 : 1))
       * sizeof(T);
   const size_t sort = (size_t)cluster_sort_warps(N) * (D + 1) * sizeof(int);
   const size_t lot = ahtt::lottery_cluster_bytes<T>(D, N, nb, stage);
@@ -322,13 +323,14 @@ fused_cell_cluster_kernel(const T* __restrict__ m0, const T* __restrict__ c0,
                           const T* __restrict__ lvl_g,
                           const T* __restrict__ P_g,
                           const T* __restrict__ scal,
+                          const T* __restrict__ h_g,
                           const T* __restrict__ d0, T* __restrict__ m_out,
                           T* __restrict__ c_out, T* __restrict__ dist_out,
                           int* __restrict__ egm_it_out,
                           T* __restrict__ egm_diff_out,
                           int* __restrict__ dist_it_out,
                           T* __restrict__ dist_diff_out, unsigned char* ws_g,
-                          int N, int A, int D, int stage, T tol,
+                          int tail, int N, int A, int D, int stage, T tol,
                           int max_iter, int accel_every, T dist_tol,
                           int dist_max_iter, int dist_accel) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -338,7 +340,8 @@ fused_cell_cluster_kernel(const T* __restrict__ m0, const T* __restrict__ c0,
   const int rank = (int)cl.block_rank();
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
-  const int K = A + 1;
+  const bool tl = tail != 0;
+  const int K = A + (tl ? 3 : 1);
   const int NK = N * K;
   const int DN = D * N;
   const int S = ahtt::egm_cluster_states(N);
@@ -352,12 +355,13 @@ fused_cell_cluster_kernel(const T* __restrict__ m0, const T* __restrict__ c0,
   int* bidx = se + 2 * DN;                            // [D, N]
 
   // 1. the policy fixed point, the labor states split over the cluster
+  // (each block closing its own states with the tail under `tail`)
   const ahtt::EgmWorkspace<T> w(reinterpret_cast<T*>(smem_raw), S, N, A, K);
   const ahtt::EgmResult<T> egm = ahtt::egm_fixed_point<T, true>(
       w, red, m0 + (size_t)lane * NK, c0 + (size_t)lane * NK,
       a_g + (size_t)lane * A, lvl_g + (size_t)lane * N,
-      P_g + (size_t)lane * N * N, s, nullptr, S, N, A, false, tol, max_iter,
-      accel_every);
+      P_g + (size_t)lane * N * N, s, h_g + (size_t)lane * N, S, N, A, tl,
+      tol, max_iter, accel_every);
   const int s0 = rank * S;
   const int ns = N - s0 < S ? (N > s0 ? N - s0 : 0) : S;
   for (int j = tid; j < ns * K; j += nthr) {
@@ -366,7 +370,7 @@ fused_cell_cluster_kernel(const T* __restrict__ m0, const T* __restrict__ c0,
   }
 
   // 2. the savings policy of this block's source rows, as a lottery; the
-  // knots of state n are in block n / S's certified iterate (the same
+  // K knots of state n are in block n / S's certified iterate (the same
   // offset in every block), written before the EGM loop's last barrier
   int r0, r1;
   ahtt::lottery_cluster_span(D, rank, &r0, &r1);
@@ -527,9 +531,7 @@ int launch_cluster(const void* m0, const void* c0, const void* a,
                    double tol, int max_iter, int accel_every,
                    double dist_tol, int dist_max_iter, int dist_accel,
                    void* stream) {
-  (void)h;
-  (void)tail;
-  const size_t smem = cluster_bytes<T>(N, A, D, NB, stage);
+  const size_t smem = cluster_bytes<T>(N, A, D, NB, tail != 0, stage);
   auto kern = fused_cell_cluster_kernel<T, NB>;
   // the default cap (48 KB) counts the static arrays too: allow every
   // dynamic request
@@ -552,10 +554,10 @@ int launch_cluster(const void* m0, const void* c0, const void* a,
   cfg.numAttrs = 1;
   cudaError_t e = cudaLaunchKernelEx(
       &cfg, kern, (const T*)m0, (const T*)c0, (const T*)a, (const T*)dg,
-      (const T*)lvl, (const T*)P, (const T*)scal, (const T*)d0, (T*)m_out,
-      (T*)c_out, (T*)dist_out, (int*)egm_it, (T*)egm_diff, (int*)dist_it,
-      (T*)dist_diff, (unsigned char*)ws, N, A, D, stage, (T)tol, max_iter,
-      accel_every, (T)dist_tol, dist_max_iter, dist_accel);
+      (const T*)lvl, (const T*)P, (const T*)scal, (const T*)h, (const T*)d0,
+      (T*)m_out, (T*)c_out, (T*)dist_out, (int*)egm_it, (T*)egm_diff,
+      (int*)dist_it, (T*)dist_diff, (unsigned char*)ws, tail, N, A, D, stage,
+      (T)tol, max_iter, accel_every, (T)dist_tol, dist_max_iter, dist_accel);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -573,7 +575,7 @@ int launch(const void* m0, const void* c0, const void* a, const void* dg,
   if (N < 1 || A < 1 || D < 2 || nb != ahtt::lottery_nb(N)
       || (nb != kBounds[0] && nb != kBounds[1]) || layout < 0
       || layout > kCluster || stage < 0 || (layout != kCluster && stage != 0)
-      || (layout == kCluster && !cluster_takes(N, D, nb, tail != 0))
+      || (layout == kCluster && !cluster_takes(N, D, nb))
       || ahtt::next_pow2(D * N) / kThreads > (1 << ahtt::kChunkLevels)
       || ahtt::next_pow2(2 * N * K) / kThreads > (1 << ahtt::kChunkLevels))
     return (int)cudaErrorInvalidValue;
@@ -614,16 +616,16 @@ unsigned long long fused_cell_grid_workspace_bytes(int N, int A, int D,
 }
 
 // Bytes of shared memory each block of a cluster lane takes under bound
-// `nb` with room for `stage` staged lottery entries (stage = 0: the part
-// that must fit for the lane to take the cluster layout), or ~0 where the
-// lane cannot take it (a tail, N outside 2..16, unpackable sources).
+// `nb`, with or without the tail, with room for `stage` staged lottery
+// entries (stage = 0: the part that must fit for the lane to take the
+// cluster layout), or ~0 where the lane cannot take it (N outside 2..16,
+// unpackable sources).
 unsigned long long fused_cell_grid_cluster_bytes(int N, int A, int D, int nb,
                                                  int tail, int f64,
                                                  int stage) {
-  if (A < 1 || stage < 0 || !cluster_takes(N, D, nb, tail != 0))
-    return ~0ull;
-  return f64 ? cluster_bytes<double>(N, A, D, nb, stage)
-             : cluster_bytes<float>(N, A, D, nb, stage);
+  if (A < 1 || stage < 0 || !cluster_takes(N, D, nb)) return ~0ull;
+  return f64 ? cluster_bytes<double>(N, A, D, nb, tail != 0, stage)
+             : cluster_bytes<float>(N, A, D, nb, tail != 0, stage);
 }
 
 // Bytes of the lottery region of a cluster block with no entry staged:

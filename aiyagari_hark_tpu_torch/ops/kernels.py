@@ -332,19 +332,16 @@ def _lottery_stage(fixed_bytes: int, D: int, N: int, itemsize: int) -> int:
 
 
 def _egm_layout(shared_bytes: int, cluster_bytes: int,
-                force_global: bool, tail: bool = False) -> int:
+                force_global: bool) -> int:
     """Index into ``EGM_LAYOUTS`` of the EGM kernel's layout, by size
     alone (never after a failure): ``shared_bytes`` is a lane's workspace
     in one block, ``cluster_bytes`` what each block of a cluster lane
-    holds (huge where the lane cannot be split, and with a tail, which
-    the cluster loop does not take).  With ``tail`` the lane runs in one
-    block, shared if it fits, else global."""
+    holds (huge where the lane cannot be split); for a lane closed by the
+    tail both count its K = A+3 knots a state."""
     if force_global:
         return 0
     if shared_bytes <= MAX_WORKSPACE_SHARED_BYTES:
         return 1
-    if tail:
-        return 0
     return 2 if cluster_bytes <= MAX_WORKSPACE_SHARED_BYTES else 0
 
 
@@ -439,7 +436,7 @@ def egm_policy_grid_layout(N: int, A: int, dtype, force_global: bool = False,
     assets (closed by the tail if ``tail``) in on the card (an entry of
     ``EGM_LAYOUTS``)."""
     return EGM_LAYOUTS[_egm_layout(*_egm_sizes(N, A, tail, dtype),
-                                   force_global, tail)]
+                                   force_global)]
 
 
 def egm_policy_grid(m0, c0, a_grid, levels, P, scalars, tol: float,
@@ -459,9 +456,10 @@ def egm_policy_grid(m0, c0, a_grid, levels, P, scalars, tol: float,
 
     A lane lives in one block's shared memory when it fits; else, split
     by labor state, in the shared memory of a cluster of up to 8 blocks
-    (not with ``tail``); else in a global workspace
-    (``egm_policy_grid_layout``).  The arithmetic and its order are the
-    same, so the layouts agree bitwise.  ``force_global`` takes the
+    (each block closing its states' tail with ``tail``: the fine compact
+    grid); else in a global workspace (``egm_policy_grid_layout``).  The
+    arithmetic and its order are the same, so the layouts agree
+    bitwise.  ``force_global`` takes the
     global layout at any size (a check of that claim)."""
     dev, dt = m0.device, m0.dtype
     C, N, K = m0.shape
@@ -499,7 +497,7 @@ def egm_policy_grid(m0, c0, a_grid, levels, P, scalars, tol: float,
     if C == 0:
         return m, c, iters, diff
     shared_bytes, cluster_bytes = _egm_sizes(N, A, tail, dt)
-    layout = _egm_layout(shared_bytes, cluster_bytes, force_global, tail)
+    layout = _egm_layout(shared_bytes, cluster_bytes, force_global)
     ws = _workspace(shared_bytes, C, layout == 0, dev)
     fn = lib.egm_policy_grid_f64 if f64 else lib.egm_policy_grid_f32
     rc = fn(*(_ptr(t) for t in args), hp, _ptr(m), _ptr(c), _ptr(iters),
@@ -787,15 +785,15 @@ def _fused_layout(N: int, A: int, D: int, tail: bool, dtype,
                   force_global: bool) -> tuple[int, int]:
     """(index into ``LAYOUTS``, lottery entries a cluster block may
     stage: 0 outside the cluster layout), by size alone.  The cluster is
-    taken only where one block cannot hold the lane, and never with
-    ``tail`` (the EGM cluster loop closes no tail): its bytes are the
-    largest of the EGM cluster block's, the sort's and the lottery
-    cluster's fixed part; its stage fills the lottery region's room."""
+    taken only where one block cannot hold the lane: its bytes are the
+    largest of the EGM cluster block's (with the tail's knots under
+    ``tail``), the sort's and the lottery cluster's fixed part; its stage
+    fills the lottery region's room."""
     lib = _lottery_library("fused_cell_grid", N)
     f64 = int(dtype == torch.float64)
     nb = lottery_state_bound(N)
-    cluster = None if tail else int(lib.fused_cell_grid_cluster_bytes(
-        N, A, D, nb, 0, f64, 0))
+    cluster = int(lib.fused_cell_grid_cluster_bytes(N, A, D, nb, int(tail),
+                                                    f64, 0))
     layout = _lottery_layout(
         lambda best: int(lib.fused_cell_grid_workspace_bytes(
             N, A, D, nb, int(tail), f64, best)), force_global, cluster)
@@ -809,31 +807,31 @@ def _fused_layout(N: int, A: int, D: int, tail: bool, dtype,
 def fused_cell_grid_layout(N: int, A: int, D: int, tail: bool, dtype,
                            force_global: bool = False) -> str:
     """The layout ``fused_cell_grid`` runs a lane in on the card (an entry
-    of ``LAYOUTS``): one block (shared, else global) where it fits or
-    under ``tail``, else a cluster of 8 blocks (2-16 labor states, no
-    tail), else global.  With ``tail`` (the compact grids) a lane too big
-    for one block keeps the global layout, as ``egm_policy_grid_layout``
-    does."""
+    of ``LAYOUTS``): one block (shared, else global) where it fits, else a
+    cluster of 8 blocks (2-16 labor states; with ``tail`` each EGM block
+    closes its states' tail), else global."""
     return LAYOUTS[_fused_layout(N, A, D, tail, dtype, force_global)[0]]
 
 
-def fused_cell_grid_cluster(N: int, A: int, D: int, dtype) -> dict:
+def fused_cell_grid_cluster(N: int, A: int, D: int, dtype,
+                            tail: bool = False) -> dict:
     """How a lane's fused cluster is cut, from the library: its blocks,
-    the bytes each must hold (``fixed_bytes``: the largest of its phases),
-    the lottery region's fixed part, the lottery entries each may stage,
-    the shared memory each then takes (``block_bytes``) and the lane's
-    global workspace."""
+    the bytes each must hold (``fixed_bytes``: the largest of its phases,
+    the EGM block's with the tail's knots under ``tail``), the lottery
+    region's fixed part, the lottery entries each may stage, the shared
+    memory each then takes (``block_bytes``) and the lane's global
+    workspace."""
     lib = _lottery_library("fused_cell_grid", N)
     f64 = int(dtype == torch.float64)
     nb = lottery_state_bound(N)
-    stage = _fused_layout(N, A, D, False, dtype, False)[1]
+    stage = _fused_layout(N, A, D, tail, dtype, False)[1]
     return dict(blocks=8, fixed_bytes=int(lib.fused_cell_grid_cluster_bytes(
-                    N, A, D, nb, 0, f64, 0)),
+                    N, A, D, nb, int(tail), f64, 0)),
                 lottery_fixed_bytes=int(
                     lib.fused_cell_grid_cluster_lottery_bytes(N, D, nb, f64)),
                 stage_entries=stage,
                 block_bytes=int(lib.fused_cell_grid_cluster_bytes(
-                    N, A, D, nb, 0, f64, stage)),
+                    N, A, D, nb, int(tail), f64, stage)),
                 workspace_bytes=int(lib.fused_cell_grid_cluster_ws_bytes(
                     N, D, f64)))
 
@@ -859,10 +857,11 @@ def fused_cell_grid(m0, c0, a_grid, dist_grid, levels, P, scalars, h, d0,
     pairs.  ``force_global``: as for ``stationary_lottery_grid``; the
     workspace holds the lottery, then one region that the EGM phase and
     the sort use first and the distribution iterates then.  A lane too
-    big for one block, without ``tail``, runs on a cluster of 8 blocks:
-    the EGM phase split by labor state, the lottery sorted into a global
-    workspace, the distribution split by target row
-    (``fused_cell_grid_layout``); all layouts agree bitwise."""
+    big for one block runs on a cluster of 8 blocks: the EGM phase split
+    by labor state (each block closing its states' tail with ``tail``),
+    the lottery sorted into a global workspace, the distribution split by
+    target row (``fused_cell_grid_layout``); all layouts agree
+    bitwise."""
     dev, dt = m0.device, m0.dtype
     C, N, K = m0.shape
     A = a_grid.shape[-1]

@@ -48,7 +48,16 @@ Phases (each raises on failure, and the script then exits non-zero):
      in its cluster layout, bitwise its global layout, its plain version
      and the reference kernels' chain, timed in turns against each, and
      at N = 12 and 3 (A=D=1000, float64: blocks past the EGM phase's
-     states join its barriers) bitwise its global layout and the chain;
+     states join its barriers) bitwise its global layout and the chain.
+     The compact grids at the fine width, every policy closed by the
+     analytic tail: the EGM kernel's tail mode (compact A=851 in float64
+     and float32, its coarse subset A=426 and the adaptive grid A=751 in
+     float64) in its cluster layout, bitwise its plain version, its
+     global layout and, at C=4, four C=1 launches, both layouts timed in
+     turns; the fused kernel with the tail (A=851, D=926, float64 and
+     float32) in its cluster layout, bitwise its global layout, its plain
+     version and the tailed reference chain, timed in turns against the
+     global layout and the chain;
      then solve_calibration_lean(**fine_grid_kwargs()) on the card in
      float64 (r* within 1e-6 pct of tests/data/torch_fine_golden.json, the JAX
      package's, trips, EGM and distribution steps equal, CONVERGED) and
@@ -56,7 +65,14 @@ Phases (each raises on failure, and the script then exits non-zero):
      of each a trip) and under kernel="fused" (one fused launch a trip),
      and bench.py's four fine lanes (CRRA 1, rho 0-0.9) as one
      solve_cells_lean batch, each lane bitwise its C=1 solve and within
-     1e-6 pct of the golden.  Any number of labor states: the lottery and
+     1e-6 pct of the golden; the fine cell on grid="compact" (float64 and
+     float32) and grid="adaptive" (float64) under both kernel policies
+     against the golden's grid records (reference kernels: float64 r*
+     within 1e-6 pct, trips, EGM, distribution, descent and polish steps
+     equal; float32 1 bp, trips equal; kernel="fused": one fused launch a
+     trip, float64 within 1e-6 pct of the fused record with its counts
+     where the golden has one and within 0.1 bp of the reference record,
+     float32 within 1 bp).  Any number of labor states: the lottery and
      fused kernels at N = 17 and 40 (D = 500 and 40), every layout each
      size takes bitwise the plain version; config 1 (N=7, A=100, D=500)
      in float64 and float32 and the cells N = 17, 21, 40 (A=32, D=500)
@@ -95,9 +111,11 @@ Phases (each raises on failure, and the script then exits non-zero):
      MARGINAL), each run's launches counted.
  11. the notebook's Krusell-Smith path (float64, the notebook's width:
      notebook_run_configs(), AgentCount=350, a_count=32, the default
-     M-grid, act_T=11000, dist_count=500; tests/data/torch_ks_golden.json
-     from the JAX package): AiyagariEconomy.solve(sim_method=
-     "distribution") on JAX's chain against the golden (outer iterations
+     M-grid, dist_count=500; the solves over KS_DEPTH = 4000 periods, the
+     fixed-rule panel over the notebook's act_T=11000;
+     tests/data/torch_ks_golden.json from the JAX package, its act_T_4000
+     record): AiyagariEconomy.solve(sim_method="distribution") on the
+     first 4000 states of JAX's chain against the golden (outer iterations
      equal, AFunc, r*, saving rate and den Haan within KS_TOL); the same
      solve interrupted after outer iteration 2 by the interrupt guard and
      resumed from its checkpoint, its final rule and history bitwise the
@@ -122,7 +140,8 @@ Phases (each raises on failure, and the script then exits non-zero):
      syncs); the transition (T=100, 1 % TFP shock decaying at 0.8, JAX's
      iterations, host syncs per iteration), the sequence-space Jacobians,
      the linear-nonlinear gap and the shock-process fit; the credit
-     crunch (the JAX test's configuration, JAX's iterations, its wall);
+     crunch (the JAX test's configuration over a 50-period horizon, JAX's
+     iterations at that horizon, its wall);
      the life cycle at horizon 40; each run's launches and wall.
  13. the two-asset portfolio economy (float64, the JAX defaults' width:
      N=7, A=48, K=7 return draws, S=25 shares, D=300; tests/data/
@@ -194,16 +213,17 @@ Phases (each raises on failure, and the script then exits non-zero):
      virtual_devices): (a) run_table2_sweep with mesh="auto" (None on one
      card) and a cells mesh of 2, 3, 4 and 8 shards (12 cells pad to 16),
      every packed field bitwise phase 3's, and at 4 shards under
-     kernel="fused" bitwise phase 5's; (b) state_shards=2 on the 12
-     cells (M = 4 cut for time; the CPU tests hold it): r* within 0.1 bp
+     kernel="fused" bitwise phase 5's; (b) state_shards=2 on the four
+     sigma = 1 cells (M = 4 and the other 8 cells cut for time; the CPU
+     tests hold them): r* within 0.1 bp
      of phase 3, statuses equal, the EGM grid kernel launched and the
      lottery grid kernel not (the row-block push-forward is plain
      PyTorch, one CUDA graph a step, held bitwise against the eager
      push); state="sharded" with no mesh bitwise phase 3; a NaN in cell 2
      recovered by a replicated rung, the other cells bitwise the clean
      run; (c) EquilibriumService with a 4-shard lane mesh, the 12-cell
-     cold replay bitwise phase 16's, and with state_shards=2, four cells
-     at rho = 0, 0.3, 0.6, 0.9 within 0.1 bp; the two together refused;
+     cold replay bitwise phase 16's, and with state_shards=2, two cells
+     ((1, 0) and (5, 0.6)) within 0.1 bp; the two together refused;
      (d) the notebook's Krusell-Smith calibration at the wealth
      study's rule, 200 periods: simulate_panel_sharded on one shard bitwise
      simulate_panel, on 4 shards (352 agents) finite, positive, mean
@@ -267,6 +287,22 @@ def log(tag, **fields):
     difference between its last line's and the previous phase's)."""
     print(json.dumps({"phase": tag, **fields, "card": CARD,
                       "t_s": time.perf_counter() - T0}), flush=True)
+
+
+# Each phase's end, seconds since the script started (``stamp``); the
+# script prints each phase's wall (from the end of the one before) on one
+# line before the kernels' record.
+PHASE_ENDS: dict = {}
+
+
+def stamp(phase: str) -> None:
+    PHASE_ENDS[phase] = time.perf_counter() - T0
+
+
+def phase_walls() -> dict:
+    ends = list(PHASE_ENDS.values())
+    return {p: t - (ends[i - 1] if i else 0.0)
+            for i, (p, t) in enumerate(PHASE_ENDS.items())}
 
 
 def card_line() -> str:
@@ -1247,6 +1283,203 @@ def fused_cluster_states_check(dev):
     return recs
 
 
+# The fine configuration on the compact grids (every policy closed by the
+# analytic tail, K = A+3 knots): the EGM kernel's lanes, (grid, dtype,
+# coarse) -- the compact grid (A=851) in float64 and float32, its coarse
+# subset (A=426, the grid ladder's descent) and the adaptive grid (A=751)
+# in float64 -- and the fused kernel's compact lane (A=851, D=926).
+FINE_TAIL_EGM = (("compact", torch.float64, False),
+                 ("compact", torch.float32, False),
+                 ("compact", torch.float64, True),
+                 ("adaptive", torch.float64, False))
+
+
+def _fine_tail_lanes(dev, dt, grid, rates=FINE_RATES):
+    """The fine model (rho 0.6, CRRA 3) on a compact ``grid`` as one lane
+    per rate of ``rates``: (model, R, W, scalars, the tail's intercept h,
+    the tail-closed initial policy)."""
+    from aiyagari_hark_tpu_torch.models import firm
+    from aiyagari_hark_tpu_torch.models import household as H
+    from aiyagari_hark_tpu_torch.utils.config import fine_grid_kwargs
+
+    kw = fine_grid_kwargs()
+    crra = kw.pop("crra")
+    base = H.build_simple_model(dtype=dt, device=dev, grid=grid, **kw)
+    model = H.stack_models([base] * len(rates))
+    r = torch.tensor(rates, dtype=dt, device=dev)
+    R, W = 1.0 + r, firm.wage_rate(firm.k_to_l_from_r(r, 0.36, 0.08), 0.36)
+    sc = H._scalars(R, W, model, 0.96, crra)
+    h = H.perfect_foresight_human_wealth(R, W, model.labor_levels,
+                                         model.transition)
+    return model, R, W, sc, h, H.initial_policy(model, analytic_tail=True)
+
+
+def fine_tail_egm_check(dev):
+    """The EGM kernel's tail mode at the fine width on the compact grids
+    (FINE_TAIL_EGM, four prices FINE_RATES): each lane takes the cluster
+    layout (one block cannot hold it); at r = 4 % (C=1) it is bitwise its
+    plain version and its global layout, both layouts timed in turns; one
+    C=4 launch is bitwise four C=1 launches.  Returns the records."""
+    from aiyagari_hark_tpu_torch.models import household as H
+    from aiyagari_hark_tpu_torch.ops import kernels as K
+
+    lib = K._library("egm_policy_grid")
+    recs = []
+    for grid, dt, coarse in FINE_TAIL_EGM:
+        egm_tol = INNER_TOL[dt][0]
+        model, _, _, sc, h, p0 = _fine_tail_lanes(dev, dt, grid)
+        if coarse:
+            idx = H._coarse_knot_indices(model.a_grid.shape[1])
+            model = model._replace(a_grid=model.a_grid[:, idx])
+            p0 = H._restrict_policy(p0, idx)
+        N, A = model.labor_levels.shape[1], model.a_grid.shape[1]
+        args4 = (p0.m_knots, p0.c_knots, model.a_grid, model.labor_levels,
+                 model.transition, sc)
+        args = tuple(t[:1] for t in args4) + (egm_tol,)
+        kw = dict(h=h[:1], tail=True)
+        tag = f"{grid} {dt}, A={A}"
+        layout = K.egm_policy_grid_layout(N, A, dt, tail=True)
+        if layout != "cluster":
+            raise AssertionError(f"the fine tailed EGM lane ({tag}) takes "
+                                 f"the {layout} layout, not the cluster one")
+        out = K.egm_policy_grid(*args, **kw)
+        t0 = time.perf_counter()
+        plain = K.egm_policy_grid_plain(*args, **kw)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        err = max(close(out[0], plain[0], dt, egm_tol),
+                  close(out[1], plain[1], dt, egm_tol))
+        if not all(torch.equal(x, y) for x, y in zip(out, plain)):
+            raise AssertionError(f"fine tailed egm_policy_grid ({tag}) is "
+                                 f"not bitwise its plain version: steps "
+                                 f"{out[2].tolist()} vs {plain[2].tolist()},"
+                                 f" max abs error {err}")
+        if not all(torch.equal(x, y) for x, y in zip(
+                K.egm_policy_grid(*args, **kw, force_global=True), out)):
+            raise AssertionError(f"fine tailed egm_policy_grid ({tag}): the "
+                                 f"cluster layout is not bitwise the global "
+                                 f"one")
+        four = K.egm_policy_grid(*args4, egm_tol, h=h, tail=True)
+        for lane in range(len(FINE_RATES)):
+            one = K.egm_policy_grid(*(t[lane:lane + 1] for t in args4),
+                                    egm_tol, h=h[lane:lane + 1], tail=True)
+            if not all(torch.equal(x[0], y[lane]) for x, y in zip(one, four)):
+                raise AssertionError(f"fine tailed egm_policy_grid ({tag}) "
+                                     f"lane {lane}: C=1 is not bitwise C=4")
+        steps = int(out[2][0])
+        f64 = int(dt == torch.float64)
+        rec = dict(grid=grid, dtype=str(dt), tail=True,
+                   ladder_phase="coarse" if coarse else "fine", N=N, A=A,
+                   knots=A + 3, layout=layout,
+                   cluster_blocks=int(lib.egm_policy_grid_cluster_blocks(N)),
+                   workspace_bytes=int(lib.egm_policy_grid_workspace_bytes(
+                       N, A, 1, f64)),
+                   cluster_block_bytes=int(lib.egm_policy_grid_cluster_bytes(
+                       N, A, 1, f64)),
+                   iters=out[2].tolist(), c4_iters=four[2].tolist(),
+                   max_abs_err=err, bitwise_vs_plain=True,
+                   bitwise_global_cluster=True, bitwise_c1_c4=True,
+                   plain_ms=plain_ms)
+        rec["kernel_ms"], rec["global_ms"] = paired_ms(
+            lambda: K.egm_policy_grid(*args, **kw),
+            lambda: K.egm_policy_grid(*args, **kw, force_global=True),
+            reps=3)
+        rec["ns_per_step"] = 1e6 * rec["kernel_ms"] / steps
+        rec["global_ns_per_step"] = 1e6 * rec["global_ms"] / steps
+        rec["bound_ms"], rec["bound_by"] = _bound(
+            dt, *egm_work(dt, 1, model, out[2], A + 3))
+        log("fine_egm_tail", **rec)
+        recs.append(rec)
+    return recs
+
+
+def fine_tail_fused_check(dev):
+    """The fused kernel with the tail at the fine compact width (A=851,
+    D=926, r = 4 %, C=1), float64 and float32: it takes its cluster layout
+    and is bitwise its global layout, its plain version (run once, timed)
+    and the tailed reference chain on the card (the EGM kernel's tail
+    mode, wealth_transition, the lottery kernel).  Times, each pair in
+    turns: the cluster against the global layout, the cluster against the
+    chain; both layouts with no distribution step; ns per distribution
+    step; the bound.  Returns the records."""
+    from aiyagari_hark_tpu_torch.models import household as H
+    from aiyagari_hark_tpu_torch.ops import kernels as K
+
+    recs = []
+    for dt in FINE_DTYPES:
+        egm_tol, dist_tol = INNER_TOL[dt]
+        model, R, W, sc, h, p0 = _fine_tail_lanes(dev, dt, "compact",
+                                                  FINE_RATES[:1])
+        d0 = H.initial_distribution(model)
+        args = (p0.m_knots, p0.c_knots, model.a_grid, model.dist_grid,
+                model.labor_levels, model.transition, sc, h, d0)
+        kw = dict(tol=egm_tol, dist_tol=dist_tol, tail=True)
+        N, A, D = model.labor_levels.shape[1], model.a_grid.shape[1], \
+            d0.shape[1]
+        layout = K.fused_cell_grid_layout(N, A, D, True, dt)
+        if layout != "cluster":
+            raise AssertionError(f"the fine compact {dt} fused lane takes "
+                                 f"the {layout} layout, not the cluster one")
+
+        def chain():
+            m, c, eit, ediff = K.egm_policy_grid(
+                *args[:3], model.labor_levels, model.transition, sc,
+                egm_tol, h=h, tail=True)
+            tr = H.wealth_transition(H.HouseholdPolicy(m, c), R, W, model)
+            return (m, c) + K.stationary_lottery_grid(
+                tr.idx, tr.weight, model.transition, d0, dist_tol) \
+                + (eit, ediff)
+
+        out = K.fused_cell_grid(*args, **kw)
+        m, c, dist, dit, ddiff, eit, ediff = chain()
+        if not all(torch.equal(x, y) for x, y in zip(
+                out, (m, c, dist, eit, ediff, dit, ddiff))):
+            raise AssertionError(f"fine compact {dt} fused_cell_grid "
+                                 f"(cluster) is not bitwise the tailed "
+                                 f"reference kernels' chain")
+        if not all(torch.equal(x, y) for x, y in zip(
+                K.fused_cell_grid(*args, **kw, force_global=True), out)):
+            raise AssertionError(f"fine compact {dt} fused_cell_grid: the "
+                                 f"cluster layout is not bitwise the global "
+                                 f"one")
+        t0 = time.perf_counter()
+        plain = K.fused_cell_grid_plain(*args, egm_tol, dist_tol=dist_tol,
+                                        tail=True)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        err = close(out[2], plain[2], dt, dist_tol)
+        if not all(torch.equal(x, y) for x, y in zip(out, plain)):
+            raise AssertionError(f"fine compact {dt} fused_cell_grid is not "
+                                 f"bitwise its plain version (max abs error "
+                                 f"{err})")
+        rec = dict(grid="compact", dtype=str(dt), tail=True, N=N, A=A, D=D,
+                   layout=layout,
+                   cluster=K.fused_cell_grid_cluster(N, A, D, dt, tail=True),
+                   egm_iters=out[3].tolist(), dist_iters=out[5].tolist(),
+                   max_abs_err=err, bitwise_vs_plain=True,
+                   bitwise_vs_reference_kernels=True,
+                   bitwise_global_cluster=True, plain_ms=plain_ms)
+        fused = lambda: K.fused_cell_grid(*args, **kw)  # noqa: E731
+        rec["kernel_ms"], rec["global_ms"] = paired_ms(
+            fused, lambda: K.fused_cell_grid(*args, **kw, force_global=True),
+            reps=2)
+        rec["turns_ms"], rec["chain_ms"] = paired_ms(fused, chain, reps=2)
+        rec["no_dist_ms"], rec["global_no_dist_ms"] = paired_ms(
+            lambda: K.fused_cell_grid(*args, **kw, dist_max_iter=0),
+            lambda: K.fused_cell_grid(*args, **kw, dist_max_iter=0,
+                                      force_global=True), reps=2)
+        steps = int(out[5][0])
+        rec["dist_ns_per_step"] = 1e6 * (rec["kernel_ms"]
+                                         - rec["no_dist_ms"]) / steps
+        rec["global_dist_ns_per_step"] = 1e6 * (
+            rec["global_ms"] - rec["global_no_dist_ms"]) / steps
+        rec["bound_ms"], rec["bound_by"] = fused_bound(dt, 1, model, out[3],
+                                                       out[5], True)
+        log("fine_fused_tail", **rec)
+        recs.append(rec)
+    return recs
+
+
 def _lean_fields(res, lane=None):
     """A lean equilibrium's fields, of one lane of a batch."""
     return {f: (v if lane is None else v[lane])
@@ -1256,7 +1489,9 @@ def _lean_fields(res, lane=None):
 def _golden_solve(dev, fn, *a, kernel="reference", **kw):
     """One lean solve on the card, its launch counters set to 0 just
     before it and read just after: one launch of each kernel of the path
-    per trip, none of any other.  Returns (result, wall s, launches)."""
+    per trip (two of the EGM kernel under the reference kernels on a
+    compact grid: the grid ladder's descent and polish), none of any
+    other.  Returns (result, wall s, launches)."""
     from aiyagari_hark_tpu_torch.ops import kernels as K
 
     K.reset_launches()
@@ -1267,8 +1502,12 @@ def _golden_solve(dev, fn, *a, kernel="reference", **kw):
     wall = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
     trips = int(res.bisect_iters.max())
+    ladder = kernel == "reference" and kw.get("grid", "reference") in (
+        "compact", "adaptive")
     for name, n in launches.items():
         want = trips if name in PATH_KERNELS[kernel] else 0
+        if ladder and name == "egm_policy_grid":
+            want *= 2
         if n != want:
             raise AssertionError(f"a {kernel} solve of {trips} trips "
                                  f"launched {name} {n} times")
@@ -1278,13 +1517,15 @@ def _golden_solve(dev, fn, *a, kernel="reference", **kw):
 def _golden_cell_check(tag, res, dt, g, **fields):
     """A lean solve against its JAX golden record under the slice rule:
     r* within FINE_RSTAR_PCT, trips equal, and in float64 the EGM and
-    distribution steps equal and CONVERGED.  Logs the comparison."""
+    distribution steps (and the descent and polish steps where the record
+    holds them) equal and CONVERGED.  Logs the comparison."""
     from aiyagari_hark_tpu_torch.solver_health import status_name
 
     got = {f: float(v) if v.is_floating_point() else int(v)
            for f, v in _lean_fields(res).items()}
     dr = abs(100.0 * got["r_star"] - g["r_star_pct"])
-    counts = ("bisect_iters", "egm_iters", "dist_iters")
+    counts = ("bisect_iters", "egm_iters", "dist_iters") + tuple(
+        k for k in ("descent_steps", "polish_steps") if k in g)
     log(tag, dtype=str(dt), dr_star_pct=dr,
         status_name=status_name(got["status"]),
         golden={k: g[k] for k in ("r_star_pct",) + counts}, **fields, **got)
@@ -1360,6 +1601,91 @@ def phase_fine_equilibrium(dev):
         egm_iters=res4.egm_iters.tolist(),
         dist_iters=res4.dist_iters.tolist())
     return out
+
+
+# The fine cell's compact-grid solves of phase 7: (grid, dtype), each under
+# both kernel policies, against tests/data/torch_fine_golden.json's "grids".
+FINE_GRID_RUNS = (("compact", torch.float64), ("compact", torch.float32),
+                  ("adaptive", torch.float64))
+
+
+def phase_fine_grids(dev):
+    """The fine configuration on the compact grids, end to end on the
+    card: solve_calibration_lean(**fine_grid_kwargs(), grid=...) for
+    FINE_GRID_RUNS under the reference kernels (the grid ladder on the EGM
+    kernel's tail mode, then the lottery kernel) and under kernel="fused"
+    (the fused kernel with the tail), each kernel of the lane in its
+    cluster layout.  Reference kernels: against the golden's record of
+    the grid and dtype under the slice rule (float64: r* within 1e-6 pct,
+    trips, EGM, distribution, descent and polish steps equal, CONVERGED;
+    float32: 1 bp, trips equal).  kernel="fused": one fused launch a
+    trip; float64 within 1e-6 pct of the golden's fused record with its
+    counts where it has one (compact), and within FUSED_BUDGET_PCT of the
+    reference record, CONVERGED; float32 within 1 bp of it.  Returns the
+    launches by run."""
+    from aiyagari_hark_tpu_torch.models.equilibrium import (
+        solve_calibration_lean)
+    from aiyagari_hark_tpu_torch.solver_health import status_name
+    from aiyagari_hark_tpu_torch.utils.config import fine_grid_kwargs
+
+    with open(FINE_GOLDEN) as f:
+        grids = json.load(f)["grids"]
+    kw = fine_grid_kwargs()
+    crra, rho = kw.pop("crra"), kw.pop("labor_ar")
+    out = {}
+    for grid, dt in FINE_GRID_RUNS:
+        name = str(dt).rsplit(".", 1)[-1]
+        g = grids[grid]
+        pts = dict(a_points=g["a_points"], dist_points=g["dist_points"])
+        layouts = _tail_layouts(kw["labor_states"], g["a_points"],
+                                g["dist_points"], dt)
+        if layouts["egm"] != "cluster" or layouts["fused"] != "cluster":
+            raise AssertionError(f"fine {grid} {name} lanes take the "
+                                 f"layouts {layouts}, not the cluster")
+        res, wall, launches = _golden_solve(
+            dev, solve_calibration_lean, crra, rho, dtype=dt, grid=grid,
+            **kw)
+        _golden_cell_check("fine_grid_equilibrium", res, dt, g[name],
+                           grid=grid, kernel="reference", wall_s=wall,
+                           launches=launches, layouts=layouts, **pts)
+        out[f"fine_{grid}_{name}"] = launches
+        res, wall, launches = _golden_solve(
+            dev, solve_calibration_lean, crra, rho, dtype=dt, grid=grid,
+            kernel="fused", **kw)
+        fused_rec = g.get(f"fused_{name}")
+        if fused_rec is not None:
+            _golden_cell_check("fine_grid_equilibrium", res, dt, fused_rec,
+                               grid=grid, kernel="fused", wall_s=wall,
+                               launches=launches, layouts=layouts, **pts)
+        dr = abs(100.0 * float(res.r_star) - g[name]["r_star_pct"])
+        budget = FUSED_BUDGET_PCT if dt == torch.float64 \
+            else FINE_RSTAR_PCT[dt]
+        status = status_name(int(res.status))
+        log("fine_grid_fused_vs_reference", grid=grid, dtype=str(dt),
+            dr_star_pct=dr, budget_pct=budget, status_name=status,
+            golden_fused_record=fused_rec is not None, wall_s=wall,
+            launches=launches, bisect_iters=int(res.bisect_iters),
+            egm_iters=int(res.egm_iters), dist_iters=int(res.dist_iters))
+        if not dr <= budget:
+            raise AssertionError(f"fine {grid} {name} under kernel=fused: r* "
+                                 f"{dr} pct from the reference record, above "
+                                 f"{budget}")
+        if dt == torch.float64 and status != "CONVERGED":
+            raise AssertionError(f"fine {grid} {name} under kernel=fused: "
+                                 f"status {status}")
+        out[f"fine_{grid}_fused_{name}"] = launches
+    return out
+
+
+def _tail_layouts(N, A, D, dt) -> dict:
+    """The layout each kernel takes for a tail-closed lane of N states, A
+    assets and D wealth points (the EGM kernel's tail mode, the lottery
+    kernel, the fused kernel with the tail)."""
+    from aiyagari_hark_tpu_torch.ops import kernels as K
+
+    return dict(egm=K.egm_policy_grid_layout(N, A, dt, tail=True),
+                lottery=K.stationary_lottery_grid_layout(D, N, dt),
+                fused=K.fused_cell_grid_layout(N, A, D, True, dt))
 
 
 # Config 1 and the many-state cells (tests/data/torch_fine_golden.json),
@@ -2009,6 +2335,13 @@ WEALTH_STUDY = os.path.join(HERE, "tests", "data", "wealth_seed_study.json")
 # The notebook run's width (notebook_run_configs(), AgentCount=350,
 # a_count=32, the default M-grid, act_T=11000) and the histogram's points.
 KS_WIDTH = dict(act_T=11000, T_discard=1000, dist_count=500, agents=350)
+# The depth of the solves of 11a-11d (the histogram solves in float64,
+# interrupted and resumed, and in float32; the panel solve): the first
+# KS_DEPTH states of the golden's chain, cut from 11000 for the script's
+# time limit, against the golden's act_T_4000 record (JAX at that depth,
+# scripts/make_torch_ks_golden.py --act-T 4000).  The fixed-rule panel
+# keeps the notebook's act_T: its band is the 32-seed study's there.
+KS_DEPTH = 4000
 # The pinned-histogram solve against JAX's, absolute: tests/test_torch_ks.py
 # holds the CPU gaps (~1e-12) to these; the card sums in other orders over
 # a longer horizon.
@@ -2016,7 +2349,11 @@ KS_TOL = dict(intercept=1e-9, r_star_pct=1e-7, saving_rate_pct=1e-6,
               den_haan_pct=1e-6)
 KS_F32_R_PCT = 1e-2     # float32 r* within 1 bp of the float64 golden
 KS_PANEL_R_PP = 0.2     # the panel's r* within 0.2 pp of the golden's
-KS_PROFILE_PERIODS = 350     # periods of the long profiled KS window
+# the profiled windows: KS_PROFILE_SHORT periods, then KS_PROFILE_PERIODS
+# (cut from 100 and 1100 for the script's time limit; launches a period
+# are the same every period)
+KS_PROFILE_SHORT = 50
+KS_PROFILE_PERIODS = 150
 KS_BAND_Z = 3.0         # the fixed-rule panel inside the 32-seed band
 # A true-KS calibration (Krusell-Smith 1998's unemployment rates) whose
 # exact-count employment moves every period.
@@ -2037,8 +2374,8 @@ def _ks_economy(dev, seed: int, **econ_updates):
 
     econ_dict = init_aiyagari_economy()
     econ_dict.update(LaborAR=0.3, LaborSD=0.2, CRRA=1.0, verbose=False,
-                     act_T=KS_WIDTH["act_T"], T_discard=KS_WIDTH["T_discard"],
-                     **econ_updates)
+                     act_T=KS_WIDTH["act_T"], T_discard=KS_WIDTH["T_discard"])
+    econ_dict.update(econ_updates)
     agent_dict = init_aiyagari_agents()
     agent_dict.update(AgentCount=KS_WIDTH["agents"])
     economy = AiyagariEconomy(seed=seed, device=dev, **econ_dict)
@@ -2152,8 +2489,9 @@ def _employment_counts(cal, chain: torch.Tensor, agents: int):
 
 def phase_ks(dev):
     """Phase 11, the notebook's Krusell-Smith path on the card at full
-    width, float64 unless named: the pinned-histogram engine on JAX's chain
-    against tests/data/torch_ks_golden.json, interrupted after outer
+    width, float64 unless named: the pinned-histogram engine on the first
+    KS_DEPTH states of JAX's chain against tests/data/torch_ks_golden.json
+    (its record at that depth), interrupted after outer
     iteration 2 and resumed (final rule and history bitwise the
     uninterrupted run's), float32; the panel engine through
     ``AiyagariEconomy.solve()`` (converged, r* near the golden's), the
@@ -2172,11 +2510,13 @@ def phase_ks(dev):
     f64 = torch.float64
     with open(KS_GOLDEN) as f:
         golden = json.load(f)
-    T = KS_WIDTH["act_T"]
+    T = KS_DEPTH
     chain = np.asarray([int(c) for c in golden["mrkv_hist"][:T]], np.int64)
-    g64 = golden["float64"]
+    gold = golden[f"act_T_{T}"]
+    g64 = gold["float64"]
+    depth = dict(act_T=T)
     hist_kw = dict(sim_method="distribution",
-                   dist_count=KS_WIDTH["dist_count"])
+                   dist_count=KS_WIDTH["dist_count"], economy_kw=depth)
     K.reset_launches()
 
     # 11a. the deterministic engine against JAX
@@ -2202,7 +2542,8 @@ def phase_ks(dev):
     ks_check(gaps["slope"] == 0.0, "the pinned rule has a slope")
     for k, tol in KS_TOL.items():
         ks_check(gaps[k] <= tol, f"{k} is {gaps[k]} from JAX's, above {tol}")
-    log("ks_histogram", dtype="float64", wall_s=wall_a, phases_s=phases_a,
+    log("ks_histogram", dtype="float64", act_T=T, wall_s=wall_a,
+        phases_s=phases_a,
         outer_iterations=len(sol_a.records),
         iteration_walls_s=[r.wall_seconds for r in sol_a.records],
         egm_iters=[r.egm_iters for r in sol_a.records],
@@ -2256,13 +2597,13 @@ def phase_ks(dev):
         outer_iterations=len(sol_c.records), converged=sol_c.converged,
         **out_c, r_gap_to_f64_golden_pct=gap32,
         r_gap_to_jax_f32_pct=abs(out_c["r_star_pct"]
-                                 - golden["float32"]["r_star_pct"]),
-        jax_f32_outer_iterations=golden["float32"]["outer_iterations"])
+                                 - gold["float32"]["r_star_pct"]),
+        jax_f32_outer_iterations=gold["float32"]["outer_iterations"])
 
     # 11d. the panel engine: AiyagariEconomy(seed=1) -> make_Mrkv_history
     # -> solve(), the notebook's own pipeline
-    (econ_d, sol_d, phases_d, wall_d), syncs_d = _synced_solve(dev, f64,
-                                                               seed=1)
+    (econ_d, sol_d, phases_d, wall_d), syncs_d = _synced_solve(
+        dev, f64, seed=1, economy_kw=depth)
     out_d = _ks_readout(econ_d, sol_d)
     dr = abs(out_d["r_star_pct"] - g64["r_star_pct"])
     ks_check(sol_d.converged, "the panel solve did not converge")
@@ -2271,7 +2612,7 @@ def phase_ks(dev):
     urate = sol_d.history.urate.cpu()
     ks_check(bool((urate == 0.0).all()), "a nonzero unemployment rate at "
              "UrateB = UrateG = 0")
-    log("ks_panel", wall_s=wall_d, phases_s=phases_d,
+    log("ks_panel", act_T=T, wall_s=wall_d, phases_s=phases_d,
         outer_iterations=len(sol_d.records),
         iteration_walls_s=[r.wall_seconds for r in sol_d.records],
         egm_iters=[r.egm_iters for r in sol_d.records],
@@ -2343,19 +2684,17 @@ def phase_ks(dev):
                                    torch.Generator(device=dev).manual_seed(3)),
             torch.Generator(device=dev).manual_seed(4)),
     }
-    # the profiled window: 100 periods, then KS_PROFILE_PERIODS (cut from
-    # 1100 for the script's time limit; launches a period are the same
-    # every period)
-    long_n = KS_PROFILE_PERIODS
+    short_n, long_n = KS_PROFILE_SHORT, KS_PROFILE_PERIODS
     for name, run in runs.items():
-        short, busy_s, wall_s_ = _device_profile(lambda: run(100))
+        short, busy_s, wall_s_ = _device_profile(lambda: run(short_n))
         long_, busy_l, wall_l = _device_profile(lambda: run(long_n))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         run(long_n)
         torch.cuda.synchronize()
         plain = time.perf_counter() - t0
-        per[name] = {"launches_per_period": (long_ - short) / (long_n - 100),
+        per[name] = {"launches_per_period": (long_ - short)
+                     / (long_n - short_n),
                      "periods": long_n,
                      "device_busy_s_long": busy_l,
                      "profiled_wall_s_long": wall_l,
@@ -2384,6 +2723,12 @@ EXT_TOL = dict(r_pct=1e-6, capital=1e-6, welfare=1e-6, hours=1e-6,
                beta=1e-6, spread=1e-9, distance=1e-6, k_path=1e-6,
                jacobian=1e-5, irf_gap_pp=1e-5, fit=1e-6, crunch_r=1e-8,
                lifecycle=1e-10, fused_bp=1e-3)
+
+
+# The crunch's golden record: the JAX test's configuration over a
+# 50-period horizon (the same 24-period phase-in), cut from 100 for the
+# script's time limit (scripts/make_torch_extensions_golden.py crunch_50).
+CRUNCH_RECORD = "crunch_50"
 
 
 def ext_check(ok, what):
@@ -2659,9 +3004,10 @@ def phase_extensions(dev):
         jax_cpu_transition_s=gtr["jax_cpu_seconds"],
         jax_cpu_jacobian_s=gj["jax_cpu_seconds"])
 
-    # 12g. the credit crunch (the JAX test's configuration)
-    gcr = g["crunch"]
-    ccfg = cfg["crunch"]
+    # 12g. the credit crunch (the JAX test's configuration, over
+    # CRUNCH_RECORD's horizon)
+    gcr = g[CRUNCH_RECORD]
+    ccfg = cfg[CRUNCH_RECORD]
     loose = household.build_simple_model(**ccfg["model"],
                                          borrow_limit=ccfg["b_loose"],
                                          dtype=f64, device=dev)
@@ -2689,7 +3035,8 @@ def phase_extensions(dev):
               f"converged {cr.converged}")
     ext_check(r_gap <= EXT_TOL["crunch_r"], f"crunch r path {r_gap} from "
               f"JAX")
-    log("extensions_check", run="crunch", iterations=cr.iterations,
+    log("extensions_check", run="crunch", horizon=H,
+        iterations=cr.iterations,
         wall_s=cr_s, ms_per_iteration=1e3 * cr_s / cr.iterations,
         r_path_gap=r_gap, end_point_gap_pct=pre_gap,
         max_excess=float(cr.max_excess),
@@ -2723,6 +3070,11 @@ PORTFOLIO = os.path.join(HERE, "tests", "data",
 # JAX suite's 7e-4 in r and 3 % in capital (tests/test_portfolio.py).
 PF_TOL = dict(r=1e-8, stocks=1e-6, dist_steps=2e-3, degenerate_r=7e-4,
               degenerate_capital=0.03)
+
+
+# the profiled steps of 13b: a short and a long run (cut from 20 and 120
+# for the script's time limit; kernels and ms a step are their difference)
+PF_PROFILE_STEPS = (10, 60)
 
 
 def pf_check(ok, what):
@@ -2842,11 +3194,12 @@ def phase_portfolio(dev):
             d = P._push_forward_portfolio(d, trans, m_r, push)
 
     per = {}
+    n_s, n_l = PF_PROFILE_STEPS
     for name, fn in (("egm_step", egm_steps), ("push_step", push_steps)):
-        short, busy_s, wall_s_ = _device_profile(lambda: fn(20))
-        long_, busy_l, wall_l = _device_profile(lambda: fn(120))
-        per[name] = dict(device_kernels=(long_ - short) / 100.0,
-                         ms=1e3 * (wall_l - wall_s_) / 100.0,
+        short, busy_s, wall_s_ = _device_profile(lambda: fn(n_s))
+        long_, busy_l, wall_l = _device_profile(lambda: fn(n_l))
+        per[name] = dict(device_kernels=(long_ - short) / (n_l - n_s),
+                         ms=1e3 * (wall_l - wall_s_) / (n_l - n_s),
                          device_busy_share=(busy_l - busy_s)
                          / max(wall_l - wall_s_, 1e-12))
     # 13c. the push, bitwise from run to run, and its time
@@ -4301,11 +4654,15 @@ def phase_fleet(dev, golden, serve_cold):
 
 SHARD_COUNTS = (2, 3, 4, 8)      # 18a: virtual shards of the one card
 # 18b: for the script's time limit the state axis runs M = 2 only, on
-# the 12 cells, clean and with the NaN drill (PERF.md §4); the CPU tests
-# hold M = 2 and 4 on every cell (tests/test_torch_state_sharding.py)
+# the first 4 of the 12 cells (sigma = 1, every rho), clean and with the
+# NaN drill (PERF.md §4); the CPU tests hold M = 2 and 4 on every cell
+# (tests/test_torch_state_sharding.py)
 STATE_SHARDS = (2,)
+STATE_CRRA = (1.0,)              # 18b's cells: phase 3's rows 0-3
 NAN_CELL = 2                     # 18b's drill: sigma = 1, rho = 0.6
-STATE_SERVE_CELLS = [(1.0, 0.0), (3.0, 0.3), (5.0, 0.6), (1.0, 0.9)]
+# 18c's state-sharded flush: two of phase 16's cells (cut from four for
+# the script's time limit)
+STATE_SERVE_CELLS = [(1.0, 0.0), (5.0, 0.6)]
 STATE_BUDGET_PCT = 1e-3          # 0.1 bp: the JAX state-sharding contract
 PANEL_PERIODS = 200              # 18d: periods of each panel history
 PANEL_AGENTS = 352               # 18d: 350 rounded up to divide 4 shards
@@ -4428,21 +4785,24 @@ def phase_sharding(dev, golden, sweeps, serve_cold):
                                                                "cells"))},
         bitwise=True)
 
-    # 18b. the state axis
-    g_r = np.asarray(p3.r_star_pct)
+    # 18b. the state axis, on phase 3's first len(rho) cells
+    state_cells = SweepConfig(crra_values=STATE_CRRA)
+    n_state = len(state_cells.cells())
+    g_r = np.asarray(p3.r_star_pct)[:n_state]
+    p3_state = p3.status[:n_state]
     state_rec = {}
     clean2 = None
     for m in STATE_SHARDS:
         with virtual_devices(dev, m):
             res, launches[f"state_{m}"], walls[f"state_{m}"] = _sharded_run(
-                dev, SweepConfig(state_shards=m))
-        shard_check(np.array_equal(res.labor_ar, p3.labor_ar)
-                    and np.array_equal(res.crra, p3.crra),
+                dev, state_cells.replace(state_shards=m))
+        shard_check(np.array_equal(res.labor_ar, p3.labor_ar[:n_state])
+                    and np.array_equal(res.crra, p3.crra[:n_state]),
                     "18b's cells are not phase 3's")
         dr = float(np.abs(res.r_star_pct - g_r).max())
         shard_check(dr <= STATE_BUDGET_PCT, f"state_shards={m}: r* {dr} pct "
                     f"from phase 3")
-        shard_check(np.array_equal(res.status, p3.status),
+        shard_check(np.array_equal(res.status, p3_state),
                     f"state_shards={m} statuses "
                     f"{[status_name(x) for x in res.status]}")
         launched(f"state_{m}", {"egm_policy_grid"})
@@ -4483,7 +4843,7 @@ def phase_sharding(dev, golden, sweeps, serve_cold):
     # the NaN drill on cell 2
     with virtual_devices(dev, 2):
         res, launches["state_2_nan"], walls["state_2_nan"] = _sharded_run(
-            dev, SweepConfig(state_shards=2),
+            dev, state_cells.replace(state_shards=2),
             inject_fault={"cell": NAN_CELL, "at_iter": 1, "mode": "nan"})
     shard_check(int(res.retries[NAN_CELL]) >= 1
                 and not bool(is_failure(int(res.status[NAN_CELL]))),
@@ -4682,6 +5042,7 @@ def main() -> int:
         launches_ks = phase_ks(dev)
     finally:
         build_thread.join()
+    stamp("11 (beside the build)")
     if "error" in build:
         raise build["error"]
     log("build", seconds=build["seconds"], overlapped_with="phase 11")
@@ -4691,6 +5052,7 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     records = phase_kernels(dev)
+    stamp("2")
     with open(GOLDEN) as f:
         golden = json.load(f)
     # each path: counters set to 0 just before its run, read just after
@@ -4714,25 +5076,43 @@ def main() -> int:
     f_launches, f_launches32 = (sweeps["fused_float64"][0],
                                 sweeps["fused_float32"][0])
     escalation_check(dev)
+    stamp("3-5b")
     phase_profile(dev)
     phase_profile(dev, "fused")
+    stamp("6")
     fine_egm, fine_lottery, fine_fused = phase_fine(dev)
+    fine_tail_egm = fine_tail_egm_check(dev)
+    fine_tail_fused = fine_tail_fused_check(dev)
     launches_fine = phase_fine_equilibrium(dev)
+    launches_fine.update(phase_fine_grids(dev))
     launches_many, many_records = phase_many_states(dev)
+    stamp("7")
     launches_c1 = phase_cell(dev, golden)
     launches_c1.update({k: v for k, v in phase_cell(dev, golden,
                                                     "fused").items() if v})
     mixed_c1 = phase_cell(dev, golden, precision="mixed")
     phase_illinois(dev, golden)
+    stamp("8")
     engine = phase_engine(dev, golden, sweeps)
+    stamp("9")
     fam_records, families = phase_families(dev, golden)
+    stamp("10")
     launches_ext, ext_pairs = phase_extensions(dev)
+    stamp("12")
     launches_pf = phase_portfolio(dev)
+    stamp("13")
     launches_dur = phase_durability(dev)
+    stamp("14")
     launches_obs = phase_obs(dev, sweeps)
+    stamp("15")
     launches_serve, serve_cold = phase_serve(dev, golden)
+    stamp("16")
     launches_fleet = phase_fleet(dev, golden, serve_cold)
+    stamp("17")
     launches_shard = phase_sharding(dev, golden, sweeps, serve_cold)
+    stamp("18")
+    log("phase_walls", seconds=phase_walls(),
+        total_s=time.perf_counter() - T0)
     for name in PATH_KERNELS["fused"]:
         launches[name] = f_launches[name]
         launches32[name] = f_launches32[name]
@@ -4768,6 +5148,20 @@ def main() -> int:
     kernels[0]["fine"] = fine_egm
     kernels[1]["fine"] = fine_lottery
     kernels[2]["fine"] = fine_fused
+    # phase 7's tailed lanes on the compact grids at the fine width
+    kernels[0]["fine_tail"] = fine_tail_egm
+    kernels[2]["fine_tail"] = fine_tail_fused
+    # each kernel's layout by lane: Table II, the fine width, the fine
+    # compact grids with the tail
+    fine_layout = {"egm_policy_grid": [fine_egm["layout"]],
+                   "stationary_lottery_grid": [r["layout"]
+                                               for r in fine_lottery],
+                   "fused_cell_grid": [r["layout"] for r in fine_fused]}
+    for k in kernels:
+        k["layouts"] = {
+            "table2": k["layout"], "fine": fine_layout[k["name"]],
+            "fine_tail": [f"{r['grid']} {r['dtype']} A={r['A']}: "
+                          f"{r['layout']}" for r in k.get("fine_tail", [])]}
     # phase 7: each kernel's launches per fine solve (f64, f32, each
     # under both kernel policies, the four-lane batch), per config-1 and
     # many-state solve; the two distribution kernels past 16 states

@@ -25,6 +25,8 @@ file (so items can run in separate processes):
   (``tests/test_huggett.py``: N=3, A=30, a_max=20, D=120): at the Huggett
   families' width (N=7, A=32, a_max=50, D=500) the tatonnement does not
   converge (4000 iterations, max excess 0.2);
+* ``crunch_50``: the same crunch over a 50-period horizon (the same
+  24-period phase-in), the depth ``chip_smoke.py`` phase 12 runs it at;
 * ``lifecycle``: ``solve_lifecycle`` at R=1.02, W=1, horizon 40.
 
 Each item records its wall on this CPU as ``jax_cpu_seconds``: the JAX
@@ -51,6 +53,7 @@ FIT_TRUTH = dict(rho=0.92, sigma=0.011)
 JAC_COLUMNS = [0, 1, 5, 10, 25, 50, 99]
 CRUNCH = dict(model=dict(labor_states=3, a_count=30, a_max=20.0,
                          dist_count=120), b_loose=-2.0, b_tight=-1.5, phase_in=24, horizon=100)
+CRUNCH_50 = dict(CRUNCH, horizon=50)
 LORENZ = dict(model=dict(labor_states=4, labor_ar=0.3, labor_sd=0.2,
                          a_count=20, dist_count=100),
               center=0.96, crra=1.0, n_types=4, spread_tol=1.5e-3,
@@ -218,7 +221,7 @@ def item_transition():
     }
 
 
-def item_crunch():
+def item_crunch(cfg=CRUNCH):
     import numpy as np
 
     from aiyagari_hark_tpu.models.huggett import (solve_credit_crunch,
@@ -228,18 +231,15 @@ def item_crunch():
 
     from aiyagari_hark_tpu.models.household import build_simple_model
 
-    loose = build_simple_model(**CRUNCH["model"],
-                               borrow_limit=CRUNCH["b_loose"],
+    loose = build_simple_model(**cfg["model"], borrow_limit=cfg["b_loose"],
                                dtype=jnp.float64)
-    tight = build_simple_model(**CRUNCH["model"],
-                               borrow_limit=CRUNCH["b_tight"],
+    tight = build_simple_model(**cfg["model"], borrow_limit=cfg["b_tight"],
                                dtype=jnp.float64)
     eq0 = solve_huggett_equilibrium(loose, BETA, CRRA)
     eqT = solve_huggett_equilibrium(tight, BETA, CRRA)
-    T = CRUNCH["horizon"]
-    phase = np.minimum(np.arange(T) / float(CRUNCH["phase_in"]), 1.0)
-    b_path = CRUNCH["b_loose"] + (CRUNCH["b_tight"]
-                                  - CRUNCH["b_loose"]) * phase
+    T = cfg["horizon"]
+    phase = np.minimum(np.arange(T) / float(cfg["phase_in"]), 1.0)
+    b_path = cfg["b_loose"] + (cfg["b_tight"] - cfg["b_loose"]) * phase
     t0 = time.perf_counter()
     res = solve_credit_crunch(loose, BETA, CRRA, b_path, eq0.distribution,
                               eqT.policy, eq0.r_star, eqT.r_star)
@@ -252,6 +252,10 @@ def item_crunch():
             "max_excess": _f(res.max_excess),
             "iterations": int(res.iterations),
             "converged": bool(res.converged), "crunch_jax_cpu_seconds": wall}
+
+
+def item_crunch_50():
+    return item_crunch(CRUNCH_50)
 
 
 def item_lifecycle():
@@ -292,7 +296,8 @@ def main():
                    "delta": DELTA, "width": WIDTH, "horizon": HORIZON,
                    "shock": SHOCK, "tax_rates": TAX_RATES,
                    "beta_types": BETA_TYPES, "labor": LABOR,
-                   "fit_truth": FIT_TRUTH, "crunch": CRUNCH, "lorenz": LORENZ,
+                   "fit_truth": FIT_TRUTH, "crunch": CRUNCH,
+                   "crunch_50": CRUNCH_50, "lorenz": LORENZ,
                    "lifecycle": LIFECYCLE, "dtype": "float64"},
     })
     for name in names:

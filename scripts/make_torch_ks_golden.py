@@ -20,7 +20,14 @@ run's chain), and writes ``tests/data/torch_ks_golden.json``:
   port's);
 * the JAX, jaxlib and numpy versions.
 
-``chip_smoke.py`` reads only the JSON.  About five minutes on the CPU.
+With ``--act-T T`` (T below the chain's length) it runs the same two
+solves on the first T states of the golden's chain (act_T=T, the same
+T_discard) and merges their records into the JSON under ``act_T_<T>``,
+leaving every other record as it is: ``chip_smoke.py`` phase 11 holds
+its histogram solves at that depth (``chip_smoke.KS_DEPTH``).
+
+``chip_smoke.py`` reads only the JSON.  About five minutes on the CPU
+(about three with ``--act-T 4000``).
 """
 
 import json
@@ -38,8 +45,9 @@ ECON_UPDATES = dict(LaborAR=0.3, LaborSD=0.2, CRRA=1.0, verbose=False)
 AGENT_UPDATES = dict(AgentCount=350)
 
 
-def _solve(chain=None) -> dict:
-    """One pinned-histogram solve in the process's default dtype."""
+def _solve(chain=None, act_T=None) -> dict:
+    """One pinned-histogram solve in the process's default dtype (over
+    ``act_T`` periods if given, else the notebook's)."""
     import numpy as np
 
     from aiyagari_hark_tpu import (AiyagariEconomy, AiyagariType,
@@ -49,6 +57,8 @@ def _solve(chain=None) -> dict:
 
     econ_dict = init_aiyagari_economy()
     econ_dict.update(ECON_UPDATES)
+    if act_T is not None:
+        econ_dict.update(act_T=act_T)
     agent_dict = init_aiyagari_agents()
     agent_dict.update(AGENT_UPDATES)
     economy = AiyagariEconomy(seed=SEED, **econ_dict)
@@ -91,23 +101,16 @@ def _child_f32(chain_path: str) -> None:
     jax.config.update("jax_enable_x64", False)
     with open(chain_path) as f:
         chain = [int(c) for c in f.read().strip()]
-    print(json.dumps(_solve(chain)))
+    print(json.dumps(_solve(chain, len(chain))))
 
 
-def main():
-    if len(sys.argv) == 3 and sys.argv[1] == "--f32-child":
-        _child_f32(sys.argv[2])
-        return
+def _solve_both(chain=None, act_T=None):
+    """The float64 solve here and the float32 one in a child process (x64
+    off) on the float64 run's chain: (float64, float32, chain)."""
     import tempfile
 
-    import jax
-    import jaxlib
-    import numpy as np
-
-    jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_enable_x64", True)
     print("float64 solve", flush=True)
-    f64 = _solve()
+    f64 = _solve(chain, act_T)
     chain = f64.pop("chain")
     print(f"  {f64['outer_iterations']} outer iterations, r* "
           f"{f64['r_star_pct']:.9f} pct", flush=True)
@@ -124,6 +127,40 @@ def main():
         raise AssertionError("the float32 run did not take the float64 chain")
     print(f"  {f32['outer_iterations']} outer iterations, r* "
           f"{f32['r_star_pct']:.9f} pct", flush=True)
+    return f64, f32, chain
+
+
+def main():
+    if len(sys.argv) == 3 and sys.argv[1] == "--f32-child":
+        _child_f32(sys.argv[2])
+        return
+    import jax
+    import jaxlib
+    import numpy as np
+
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", True)
+    if len(sys.argv) == 3 and sys.argv[1] == "--act-T":
+        act_T = int(sys.argv[2])
+        with open(OUT) as f:
+            payload = json.load(f)
+        chain = payload["mrkv_hist"][:act_T]
+        if len(chain) != act_T:
+            raise ValueError(f"the golden's chain has {len(chain)} states")
+        f64, f32, _ = _solve_both([int(c) for c in chain], act_T)
+        payload[f"act_T_{act_T}"] = {
+            "command": "JAX_PLATFORMS=cpu python "
+                       f"scripts/make_torch_ks_golden.py --act-T {act_T}",
+            "act_T": act_T, "T_discard": 1000,
+            "chain": f"mrkv_hist[:{act_T}]", "float64": f64,
+            "float32": f32}
+        tmp = f"{OUT}.{os.getpid()}.tmp"
+        with open(tmp, "w") as f:
+            json.dump(payload, f, indent=1)
+        os.replace(tmp, OUT)
+        print(f"merged act_T_{act_T} into {os.path.relpath(OUT, ROOT)}")
+        return
+    f64, f32, chain = _solve_both()
     payload = {
         "command": "JAX_PLATFORMS=cpu python scripts/make_torch_ks_golden.py",
         "versions": {"jax": jax.__version__, "jaxlib": jaxlib.__version__,

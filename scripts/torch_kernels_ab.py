@@ -14,9 +14,14 @@ seconds are printed), then runs its own ``chip_smoke.phase_kernels``
 default layout and its global one, timed with CUDA events) and
 ``chip_smoke.fine_fused_check`` (the fused kernel at A=1000, N=15,
 D=1000, C=1, against the reference kernels' chain in turns where the
-tree's check times it).  Prints
-each tree's kernel milliseconds and, last, one JSON line with all of
-them and the card's name and power limit.
+tree's check times it), then, with its own package, the tailed lanes of
+the fine compact grid (A=851, N=15, D=926, r = 4 %, C=1, float64 and
+float32): the EGM kernel's tail mode and the fused kernel with the tail,
+each in the layout the tree chooses, timed with CUDA events, with its
+steps and a digest of its outputs.  Prints each tree's kernel
+milliseconds and, last, one JSON line with all of them, whether each
+fine tailed lane's outputs are the same bits in every run (parent and
+change), and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -50,6 +55,42 @@ for f in fused if isinstance(fused, list) else [fused]:   # one, before
     out[f"fine_fused/{f['dtype'].rsplit('.', 1)[-1]}"] = dict(
         ms=f["kernel_ms"], global_ms=f.get("global_ms"),
         chain_ms=f.get("chain_ms"), layout=f["layout"])
+import hashlib
+from aiyagari_hark_tpu_torch.models import firm
+from aiyagari_hark_tpu_torch.models import household as H
+from aiyagari_hark_tpu_torch.utils.config import fine_grid_kwargs
+for dt in (torch.float64, torch.float32):
+    kw = fine_grid_kwargs()
+    crra = kw.pop("crra")
+    model = H.stack_models([H.build_simple_model(dtype=dt, device=dev,
+                                                 grid="compact", **kw)])
+    r = torch.tensor([0.04], dtype=dt, device=dev)
+    R, W = 1.0 + r, firm.wage_rate(firm.k_to_l_from_r(r, 0.36, 0.08), 0.36)
+    sc = H._scalars(R, W, model, 0.96, crra)
+    h = H.perfect_foresight_human_wealth(R, W, model.labor_levels,
+                                         model.transition)
+    p0 = H.initial_policy(model, analytic_tail=True)
+    d0 = H.initial_distribution(model)
+    egm_tol, dist_tol = cs.INNER_TOL[dt]
+    N, A, D = (model.labor_levels.shape[1], model.a_grid.shape[1],
+               model.dist_grid.shape[1])
+    runs = {
+        "egm": (lambda: K.egm_policy_grid(
+            p0.m_knots, p0.c_knots, model.a_grid, model.labor_levels,
+            model.transition, sc, egm_tol, h=h, tail=True),
+            K.egm_policy_grid_layout(N, A, dt, tail=True), (2,)),
+        "fused": (lambda: K.fused_cell_grid(
+            p0.m_knots, p0.c_knots, model.a_grid, model.dist_grid,
+            model.labor_levels, model.transition, sc, h, d0, egm_tol,
+            dist_tol=dist_tol, tail=True),
+            K.fused_cell_grid_layout(N, A, D, True, dt), (3, 5))}
+    for name, (fn, layout, it) in runs.items():
+        res = fn()
+        digest = hashlib.sha256(b"".join(
+            t.cpu().contiguous().numpy().tobytes() for t in res)).hexdigest()
+        out[f"fine_tail_{name}/{str(dt).rsplit('.', 1)[-1]}"] = dict(
+            ms=cs.cuda_ms(fn, reps=3), layout=layout, N=N, A=A, D=D,
+            steps=[int(res[i][0]) for i in it], digest=digest[:16])
 print("TIMES", json.dumps(out), flush=True)
 '''
 
@@ -73,7 +114,10 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
-    print(json.dumps({"runs": res, "card": card}))
+    same = {k: len({r[k]["digest"] for _, r in res}) == 1
+            for k in res[0][1] if k.startswith("fine_tail_")}
+    print(json.dumps({"runs": res, "fine_tail_same_bits": same,
+                      "card": card}))
     return 0
 
 

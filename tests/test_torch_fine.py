@@ -18,6 +18,20 @@ on the CPU, against the JAX package: the port's twin of
   JAX golden; then JAX's own bounds on the two BASELINE configurations,
   solved in float32 as the JAX test solves them: each r* in (3.0, 4.17)
   pct, the two within 0.1 pct of each other.
+* The fine cell on the compact grids (``grid="compact"`` and
+  ``"adaptive"``: every policy closed by the analytic tail, the
+  coarse-to-fine ladder on the EGM kernel's tail mode) under the
+  reference kernels, against the golden's ``grids`` records: float64 r*
+  within 1e-6 pct with the trips, EGM, distribution, descent and polish
+  steps equal and CONVERGED; compact float32 within 1 bp with the trips
+  equal.
+* The fused kernel's plain version with the tail at the fine compact
+  width (A=851, D=926), at a price and a start drawn with numpy from a
+  seed: bitwise the chain of the tailed EGM plain loop, the savings
+  policy and the lottery's plain version (the chain ``chip_smoke.py``
+  phase 7 holds the card's tailed cluster layouts to, bitwise), its
+  policy against JAX's compact ``egm_step`` loop within the parity
+  tolerance, with equal steps.
 * The distribution kernel's plain version at the fine width, on a lottery
   and a Markov chain made with numpy from a seed, against JAX's scatter
   push under its accelerated loop: values within the JAX kernel-parity
@@ -71,13 +85,13 @@ def _cell_kwargs(cell):
                 dist_count=500)
 
 
-def _solve(cell, dtype):
-    if (cell, dtype) not in _SOLVES:
+def _solve(cell, dtype, grid="reference"):
+    if (cell, dtype, grid) not in _SOLVES:
         kw = _cell_kwargs(cell)
         crra, rho = kw.pop("crra"), kw.pop("labor_ar")
-        _SOLVES[cell, dtype] = solve_calibration_lean(
-            crra, rho, dtype=DTYPES[dtype], device="cpu", **kw)
-    return _SOLVES[cell, dtype]
+        _SOLVES[cell, dtype, grid] = solve_calibration_lean(
+            crra, rho, dtype=DTYPES[dtype], device="cpu", grid=grid, **kw)
+    return _SOLVES[cell, dtype, grid]
 
 
 def _golden_cell(golden, cell, dtype):
@@ -155,6 +169,91 @@ def test_named_benchmark_configs_keep_jax_bounds(golden):
     assert abs(got["baseline"] - got["fine"]) < 0.1
     assert abs(golden["baseline"]["float32"]["r_star_pct"]
                - golden["fine"]["float32"]["r_star_pct"]) < 0.1
+
+
+@pytest.mark.parametrize("grid, dtype", [
+    ("compact", "float64"), ("adaptive", "float64"), ("compact", "float32"),
+])
+def test_fine_compact_grids_match_the_jax_golden(golden, grid, dtype):
+    """The slice rule on the compact grids: float64 r* within 1e-6 pct
+    with the six counts equal (trips, EGM, distribution, descent and
+    polish steps, CONVERGED); float32 within 1 bp with the trips
+    equal."""
+    from aiyagari_hark_tpu.ops.grids import grid_point_counts
+
+    g = golden["grids"][grid]
+    kw = fine_grid_kwargs()
+    assert (g["a_points"], g["dist_points"]) == grid_point_counts(
+        grid, kw["a_count"], kw["dist_count"])
+    res = _solve("fine", dtype, grid)
+    rec = g[dtype]
+    assert rec["kernel"] == "reference"
+    assert abs(100.0 * float(res.r_star) - rec["r_star_pct"]) \
+        <= R_STAR_PCT[dtype]
+    assert int(res.bisect_iters) == rec["bisect_iters"]
+    if dtype == "float64":
+        for k in ("egm_iters", "dist_iters", "descent_steps",
+                  "polish_steps"):
+            assert int(getattr(res, k)) == rec[k], k
+        assert status_name(int(res.status)) == rec["status_name"] \
+            == "CONVERGED"
+
+
+def test_fine_compact_fused_plain_is_bitwise_the_tailed_chain():
+    """At the fine compact width, one price and a start drawn from a
+    numpy seed: ``fused_cell_grid_plain(tail=True)`` is bitwise the
+    tailed EGM plain loop, ``wealth_transition`` and the lottery's plain
+    version in turn; its policy is JAX's compact ``egm_step`` loop within
+    the parity tolerance, in as many steps."""
+    import aiyagari_hark_tpu_torch.models.household as th
+    from aiyagari_hark_tpu_torch.models import firm
+
+    rng = np.random.default_rng(17)
+    r = float(rng.uniform(0.03, 0.045))
+    kw = fine_grid_kwargs()
+    crra = kw.pop("crra")
+    dt = torch.float64
+    model = th.stack_models([th.build_simple_model(
+        dtype=dt, device="cpu", grid="compact", **kw)])
+    C, N = model.labor_levels.shape
+    A, D = model.a_grid.shape[1], model.dist_grid.shape[1]
+    assert (A, D) == (851, 926)
+    rt = torch.tensor([r], dtype=dt)
+    R = 1.0 + rt
+    W = firm.wage_rate(firm.k_to_l_from_r(rt, 0.36, 0.08), 0.36)
+    sc = th._scalars(R, W, model, 0.96, crra)
+    h = th.perfect_foresight_human_wealth(R, W, model.labor_levels,
+                                          model.transition)
+    p0 = th.initial_policy(model, analytic_tail=True)
+    d0 = rng.dirichlet(np.ones(D * N)).reshape(1, D, N)
+    d0 = torch.tensor(d0, dtype=dt)
+    egm_tol, dist_tol = 1e-6, 1e-11
+    fused = K.fused_cell_grid_plain(
+        p0.m_knots, p0.c_knots, model.a_grid, model.dist_grid,
+        model.labor_levels, model.transition, sc, h, d0, egm_tol,
+        dist_tol=dist_tol, tail=True)
+    m, c, eit, ediff = K.egm_policy_grid_plain(
+        p0.m_knots, p0.c_knots, model.a_grid, model.labor_levels,
+        model.transition, sc, egm_tol, h=h, tail=True)
+    tr = th.wealth_transition(th.HouseholdPolicy(m, c), R, W, model)
+    dist, dit, ddiff = K.stationary_lottery_grid_plain(
+        tr.idx, tr.weight, model.transition, d0, dist_tol)
+    for a, b in zip(fused, (m, c, dist, eit, ediff, dit, ddiff)):
+        assert torch.equal(a, b)
+    assert m.shape == (1, N, A + 3)
+    jm = jh.build_simple_model(labor_states=N, labor_ar=kw["labor_ar"],
+                               a_count=kw["a_count"],
+                               dist_count=kw["dist_count"], grid="compact")
+    jp, jit_, _, _ = jax.jit(lambda Rj, Wj: jh.accelerated_policy_fixed_point(
+        lambda p: jh.egm_step(p, Rj, Wj, jm, 0.96, crra,
+                              analytic_tail=True),
+        jh.initial_policy(jm, analytic_tail=True), egm_tol, 3000, 32))(
+        float(R[0]), float(W[0]))
+    assert int(eit[0]) == int(jit_)
+    np.testing.assert_allclose(m[0].numpy(), np.asarray(jp.m_knots),
+                               rtol=1e-9, atol=1e-8)
+    np.testing.assert_allclose(c[0].numpy(), np.asarray(jp.c_knots),
+                               rtol=1e-9, atol=1e-8)
 
 
 def _numpy_lottery(seed, D, N):

@@ -553,21 +553,40 @@ def test_egm_tail_mode_validates_its_inputs(compact):
         K.egm_policy_grid(*args, 1e-6, h=h.float(), tail=True)
 
 
-@pytest.mark.parametrize("shared, cluster, layout", [
-    (12_712, 2 ** 64 - 1, "shared"),         # compact, N=7, A=28, f64
-    (K.MAX_WORKSPACE_SHARED_BYTES, 2 ** 64 - 1, "shared"),
-    (850_760, 2 ** 64 - 1, "global"),        # a fine lane with a tail
-    # the cluster bytes export ~0 with a tail; even a small count (the
-    # fine lane without a tail) never sends a tail to the cluster
-    (850_760, 122_136, "global"),
-    (K.MAX_WORKSPACE_SHARED_BYTES + 1, 0, "global"),
+@pytest.mark.parametrize("N, A, dtype, shared, cluster, layout", [
+    # the fine compact grid (A=851) in f64 and f32, its coarse subset
+    # (A=426) and the adaptive grid (A=751) in f64: one block overflows,
+    # a cluster block (2 states, K = A+3 knots) fits
+    (15, 851, torch.float64, 725_848, 104_448, "cluster"),
+    (15, 851, torch.float32, 362_924, 52_224, "cluster"),
+    (15, 426, torch.float64, 365_448, 53_448, "cluster"),
+    (15, 751, torch.float64, 641_048, 92_448, "cluster"),
+    # Table II's tailed lanes (N=7: A=28 and its coarse A=15 in f64, A=28
+    # in f32) fit one block: shared
+    (7, 28, torch.float64, 12_712, 2_440, "shared"),
+    (7, 15, torch.float64, 7_512, 1_608, "shared"),
+    (7, 28, torch.float32, 6_356, 1_220, "shared"),
+    # a lane no cluster splits (~0), or whose cluster blocks overflow
+    (1, 100_000, torch.float64, 850_760, 2 ** 64 - 1, "global"),
+    (15, 851, torch.float64, K.MAX_WORKSPACE_SHARED_BYTES + 1,
+     K.MAX_WORKSPACE_SHARED_BYTES + 1, "global"),
 ])
-def test_egm_layout_never_takes_the_cluster_with_a_tail(shared, cluster,
-                                                        layout):
-    assert K.EGM_LAYOUTS[K._egm_layout(shared, cluster, False,
-                                       tail=True)] == layout
-    assert K.EGM_LAYOUTS[K._egm_layout(shared, cluster, True,
-                                       tail=True)] == "global"
+def test_egm_layout_never_takes_the_cluster_with_a_tail(
+        monkeypatch, N, A, dtype, shared, cluster, layout):
+    """A lane closed by the tail is chosen as any other, from byte counts
+    asked with the tail (K = A+3 knots a state): shared where one block
+    holds it, else the cluster where its blocks fit, else global; global
+    under ``force_global``.  (Before the cluster loop closed the tail, a
+    tailed lane never took the cluster.)"""
+    lib = _FakeLib(egm_policy_grid_workspace_bytes=shared,
+                   egm_policy_grid_cluster_bytes=cluster)
+    monkeypatch.setattr(K, "_library", lambda name: lib)
+    assert K.egm_policy_grid_layout(N, A, dtype, tail=True) == layout
+    assert K.egm_policy_grid_layout(N, A, dtype, force_global=True,
+                                    tail=True) == "global"
+    f64 = int(dtype == torch.float64)
+    assert lib.calls and all(args == (N, A, 1, f64)
+                             for _, args in lib.calls)
 
 
 # ---------------------------------------------------------------------------
@@ -613,7 +632,8 @@ FUSED_FINE_F64 = dict(   # N=15, A=1000, D=1000, float64
 
 @pytest.mark.parametrize("sizes, tail, force_global, layout, stage", [
     (FUSED_FINE_F64, False, False, "cluster", 13_484),
-    (FUSED_FINE_F64, True, False, "global", 0),     # never with a tail
+    # a tail moves nothing in the choice: the cluster's bytes count it
+    (FUSED_FINE_F64, True, False, "cluster", 13_484),
     (FUSED_FINE_F64, False, True, "global", 0),     # never under force
     # the paper's width fits one block: shared, never the cluster
     (dict(fused_cell_grid_workspace_bytes=lambda *a: 210_544 if a[-1]
@@ -646,6 +666,47 @@ def test_fused_layout_takes_the_cluster_only_past_one_block(
                if name != "fused_cell_grid_cluster_lottery_bytes")
     assert all(args[2] == 16 for name, args in lib.calls
                if name == "fused_cell_grid_cluster_lottery_bytes")
+
+
+FUSED_FINE_COMPACT_F64 = dict(   # N=15, A=851, D=926, tail, float64
+    fused_cell_grid_workspace_bytes=1_339_128,
+    fused_cell_grid_cluster_bytes=lambda N, A, D, nb, tail, f64, stage:
+        max(104_448 if tail else 88_448, 64_752 + 12 * stage),
+    fused_cell_grid_cluster_lottery_bytes=64_752,
+)
+
+
+@pytest.mark.parametrize("N, sizes, force_global, layout, stage", [
+    # the fine compact grid: one block overflows, the tailed cluster fits
+    (15, FUSED_FINE_COMPACT_F64, False, "cluster", 13_889),
+    (15, FUSED_FINE_COMPACT_F64, True, "global", 0),
+    # Table II's compact lane (N=7, A=28, D=468) fits one block: shared
+    (7, dict(fused_cell_grid_workspace_bytes=lambda *a: 197_104 if a[-1]
+             else 170_896, fused_cell_grid_cluster_bytes=15_664,
+             fused_cell_grid_cluster_lottery_bytes=15_664),
+     False, "shared", 0),
+    # past 16 labor states no cluster takes the lane (~0): global
+    (17, dict(fused_cell_grid_workspace_bytes=lambda *a: 485_632 if a[-1]
+              else 421_984, fused_cell_grid_cluster_bytes=2 ** 64 - 1,
+              fused_cell_grid_cluster_lottery_bytes=40_000),
+     False, "global", 0),
+])
+def test_fused_layout_takes_the_tailed_cluster_past_one_block(
+        monkeypatch, N, sizes, force_global, layout, stage):
+    """With the tail (the compact grids): the cluster where one block
+    overflows and the cluster's blocks fit, shared where one block holds
+    the lane, global past 16 labor states and under ``force_global``;
+    every byte count asked with the tail, under the lane's bound."""
+    lib = _FakeLib(**sizes)
+    monkeypatch.setattr(K, "_library", lambda name: lib)
+    got, got_stage = K._fused_layout(N, 851, 926, True, torch.float64,
+                                     force_global)
+    assert (K.LAYOUTS[got], got_stage) == (layout, stage)
+    nb = K.lottery_state_bound(N)
+    asked = [(name, args) for name, args in lib.calls
+             if name != "fused_cell_grid_cluster_lottery_bytes"]
+    assert asked and all(args[3] == nb and args[4] == 1
+                         for _, args in asked)
 
 
 @pytest.mark.parametrize("N, bound", [(7, 8), (17, 32), (40, 0)])
