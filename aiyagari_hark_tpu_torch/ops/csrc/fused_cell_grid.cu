@@ -482,7 +482,7 @@ fused_cell_cluster_kernel(const T* __restrict__ m0, const T* __restrict__ c0,
   const int rn = ahtt::lottery_cluster_rows(D) * N;
   const ahtt::LotteryResult<T> dist = ahtt::lottery_cluster_loop<T, NB>(
       rows, sm.Pt, d0 + (size_t)lane * DN, sm.it, sm.it + 3 * rn,
-      dist_out + (size_t)lane * DN, sm.mv, red, D, N, dist_tol,
+      dist_out + (size_t)lane * DN, sm.mv, sm.split, red, D, N, dist_tol,
       dist_max_iter, dist_accel);
   if (rank == 0 && tid == 0) {
     egm_it_out[lane] = egm.iters;

@@ -60,6 +60,28 @@
 // household.pairwise_sum; its chunks need not fall on a cluster block's
 // rows, so a cluster reads them through distributed shared memory, once
 // every `accel_every` steps.
+//
+// The cluster loop's split of long segments (bounds 8, 16 and 32; the
+// wide mix keeps its loop).  A segment is one target row's sources in one
+// labor state.  Most hold 1-4, but the low-income states pile theirs onto
+// the bottom rows of the wealth grid (up to ~170 at the fine width, all in
+// the first warp of the lane's first block), and a warp runs each of its
+// threads' states in lockstep, as long as its longest segment: one warp's
+// serial gather set the step.  So each cluster block lists, once per
+// launch, the segments of its rows with more than kSplitDegree sources
+// (lottery_split_build, in the order its threads meet them, up to
+// kSplitSegs segments and kSplitEntries entries), with a copy of their
+// sources and coefficients.  Each step of a block that lists any, all
+// its threads first form the listed products, a few each, as independent
+// loads (mul, the rounded product of the serial gather); after a barrier
+// each listed segment is summed by one lane of the warp that owns it,
+// from 0 in CSR order, the lanes working at once, and the owning thread
+// takes that sum in place of its gather: the same products added in the
+// same order, so the same bits.  What stays serial is the adds of the
+// longest segment.  A segment past the caps keeps the serial gather.  The
+// one-block loop (lottery_fixed_point) keeps the serial gather alone: at
+// the paper's width (~90 sources at most) the split saved warp 0 about
+// what its adds cost, and slowed the lanes with no long segment.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -75,11 +97,71 @@ constexpr int kLotteryClusterMax = 8;     // the portable cluster size
 constexpr int kLotteryThreads = 512;      // every lottery kernel's block
 constexpr int kLotteryPackedMax = 1 << 16;   // a staged source's element
 
+// The split of long segments: a segment with more than kSplitDegree
+// sources is split (a warp's regular gather then runs at most that many
+// in a state); a cluster block lists at most kSplitSegs of them and
+// kSplitEntries of their entries.  The build passes the three as -D flags
+// from ops/kernels.py (LOTTERY_SPLIT_*), their one source.
+#if !defined(AHTT_SPLIT_DEGREE) || !defined(AHTT_SPLIT_SEGS) \
+    || !defined(AHTT_SPLIT_ENTRIES)
+#error "the split's limits come from the build (ops/kernels.py NVCC_FLAGS)"
+#endif
+constexpr int kSplitDegree = AHTT_SPLIT_DEGREE;
+constexpr int kSplitSegs = AHTT_SPLIT_SEGS;
+constexpr int kSplitEntries = AHTT_SPLIT_ENTRIES;
+static_assert(kSplitSegs + 1 >= 2 * (kLotteryThreads / 32),
+              "the list's starts hold the build's warp totals");
+
 // The bound NB on the labor states a lane's loop is compiled for: 8, 16
 // or 32, or 0 past 32 (the wide mix, no per-state array in registers).
 __host__ __device__ constexpr int lottery_nb(int N) {
   return N <= 8 ? 8 : N <= 16 ? 16 : N <= 32 ? 32 : 0;
 }
+
+// Bytes of a cluster block's split list under bound `nb` (none under the
+// wide mix): the segments' sums, the entries' products and coefficients
+// in T, then the entries' sources, the segments' first entries and the
+// count listed in int, 16-byte aligned.
+template <typename T>
+__host__ __device__ constexpr size_t lottery_split_bytes(int nb) {
+  return nb ? ((kSplitSegs + 2 * (size_t)kSplitEntries) * sizeof(T)
+               + ((size_t)kSplitEntries + kSplitSegs + 2) * sizeof(int)
+               + 15) / 16 * 16
+            : 0;
+}
+
+// The lottery_split_bytes(nb) region at `base` (16-byte aligned): every
+// part at an offset known at compile time.
+template <typename T>
+struct LotterySplit {
+  unsigned char* base;
+  // each listed segment's sum, this step [kSplitSegs]
+  __device__ T* sum() const { return reinterpret_cast<T*>(base); }
+  // the listed entries' products, this step, and coefficients
+  // [kSplitEntries]
+  __device__ T* prod() const { return sum() + kSplitSegs; }
+  __device__ T* coef() const { return prod() + kSplitEntries; }
+  // their sources, as the loop addresses them [kSplitEntries]
+  __device__ int* src() const {
+    return reinterpret_cast<int*>(coef() + kSplitEntries);
+  }
+  // each listed segment's first entry [kSplitSegs + 1], then the count
+  // of segments listed
+  __device__ int* off() const { return src() + kSplitEntries; }
+  __device__ int* listed() const { return off() + kSplitSegs + 1; }
+};
+
+// What a thread keeps of its block's split list: its own listed segments
+// are `count` from `first` on, the first `count` of its segments over
+// kSplitDegree in the order it meets them; its warp's are [w0, w1); the
+// block's listed entries end at `end` (0: the block lists none).
+struct SplitPlan {
+  int first;
+  int count;
+  int w0;
+  int w1;
+  int end;
+};
 
 // The transposed transition's padded width under bound `nb`: nb, or N
 // rounded up to 4 for the wide mix (rows stay 16-byte aligned).
@@ -135,16 +217,18 @@ __host__ __device__ inline int lottery_cluster_rows(int D) {
   return (D + kLotteryClusterMax - 1) / kLotteryClusterMax;
 }
 
-// Bytes of one cluster block's shared memory: the padded P, its rows of
-// the four iterates [4, R N] and the wide mix's staging rows in T, room
-// for `stage` staged lottery entries (coefficients in T, then their start
-// [N, R+1] and packed sources in int), 16-byte aligned.  With stage = 0:
-// the part that must fit for the lane to take the cluster layout.
+// Bytes of one cluster block's shared memory: the padded P, the split
+// list, its rows of the four iterates [4, R N] and the wide mix's staging
+// rows in T, room for `stage` staged lottery entries (coefficients in T,
+// then their start [N, R+1] and packed sources in int), 16-byte aligned.
+// With stage = 0: the part that must fit for the lane to take the
+// cluster layout.
 template <typename T>
 __host__ __device__ inline size_t lottery_cluster_bytes(int D, int N, int nb,
                                                         int stage) {
   const size_t rn = (size_t)lottery_cluster_rows(D) * N;
   const size_t b = lottery_p_bytes<T>(N, nb)
+                   + lottery_split_bytes<T>(nb)
                    + (4 * rn + lottery_mix_elems(N, nb, 4) + stage)
                          * sizeof(T)
                    + ((size_t)N * (lottery_cluster_rows(D) + 1) + stage)
@@ -177,6 +261,7 @@ struct LotteryCsr {
 template <typename T>
 struct LotteryClusterSmem {
   T* Pt;
+  unsigned char* split;   // the split list (lottery_split_bytes)
   T* it;    // the iterates [3, R N], then the best one [R N]
   T* mv;    // the wide mix's staging rows (none under a bound)
   T* cf;    // [stage]
@@ -186,7 +271,9 @@ struct LotteryClusterSmem {
                                 int stage) {
     const int rn = lottery_cluster_rows(D) * N;
     Pt = reinterpret_cast<T*>(base);
-    it = Pt + lottery_pad(N, nb) * lottery_pad(N, nb);
+    split = base + lottery_p_bytes<T>(N, nb);
+    it = reinterpret_cast<T*>(
+        split + lottery_split_bytes<T>(nb));
     mv = it + 4 * rn;
     cf = mv + lottery_mix_elems(N, nb, 4);
     st = reinterpret_cast<int*>(cf + stage);
@@ -265,6 +352,137 @@ __device__ LotteryRows<T> lottery_stage_rows(
   }
   if (staged) return LotteryRows<T>{s.st, R + 1, s.se, s.cf, 0, true};
   return LotteryRows<T>{s.st, R + 1, se_g, cf_g, D2, false};
+}
+
+// List a cluster block's segments over kSplitDegree (SplitPlan,
+// LotterySplit) in the order its threads meet them: rows in passes of
+// blockDim.x / TPR, a row's TPR threads each taking the states n = h,
+// h + TPR, ... (SPT of them), as the loop does.  The block's rows are
+// `nrows` rows of starts `st` (rows of `rs` ints a state, relative to the
+// state's entries at se + n ss, cf + n ss).  Segments are listed while
+// the list holds them (kSplitSegs, kSplitEntries entries): a prefix of
+// that order, so each thread's are the first of its own.  Sources are
+// listed in the packed (owner << 16) | element form (`packed`: they come
+// so; else elements of the lane, `bn` to a block).  Every thread of the
+// block must call it: it starts with a barrier (the caller's copy of the
+// CSR into shared memory is then in place), and it ends with one, the
+// list in place and its end read (the same in every thread).
+template <typename T, int SPT, int TPR>
+__device__ SplitPlan lottery_split_build(
+    const LotterySplit<T>& sp, const int* st, int rs, const int* se,
+    const T* cf, int ss, int nrows, int N, int bn, bool packed) {
+  const int tid = threadIdx.x;
+  if (tid == 0) *sp.listed() = 0;
+  __syncthreads();
+  const int wl = tid & 31;
+  const int wid = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int h = tid % TPR;
+  const int pass = blockDim.x / TPR;
+  int* const off = sp.off();
+  // calls f(n, k0, degree) for each of this thread's long segments
+  auto each_long = [&](auto f) {
+    for (int base = 0; base < nrows; base += pass) {
+      const int r = base + tid / TPR;
+      if (r >= nrows) break;
+      for (int q = 0; q < SPT; ++q) {
+        const int n = TPR * q + h;
+        if (n >= N) break;
+        const int k0 = st[n * rs + r];
+        const int deg = st[n * rs + r + 1] - k0;
+        if (deg > kSplitDegree && !f(n, k0, deg)) return;
+      }
+    }
+  };
+  int ns = 0, ne = 0;
+  each_long([&](int, int, int deg) {
+    ++ns;
+    ne += deg;
+    return true;
+  });
+  // exclusive prefixes over the block, in thread order; the warps' totals
+  // pass through the list's starts, free until it is written
+  int ps = ns, pe = ne;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int us = __shfl_up_sync(0xffffffffu, ps, o);
+    const int ue = __shfl_up_sync(0xffffffffu, pe, o);
+    if (wl >= o) {
+      ps += us;
+      pe += ue;
+    }
+  }
+  if (wl == 31) {
+    off[wid] = ps;
+    off[nwarps + wid] = pe;
+  }
+  __syncthreads();
+  ps -= ns;
+  pe -= ne;
+  for (int w = 0; w < wid; ++w) {
+    ps += off[w];
+    pe += off[nwarps + w];
+  }
+  __syncthreads();
+  SplitPlan plan{ps, 0, 0, 0, 0};
+  int e = pe;
+  if (tid == 0) off[0] = 0;
+  each_long([&](int n, int k0, int deg) {
+    const int s = ps + plan.count;
+    if (s >= kSplitSegs || e + deg > kSplitEntries) return false;
+    for (int k = 0; k < deg; ++k) {
+      int v = se[n * ss + k0 + k];
+      if (!packed) {
+        const int o = v / bn;
+        v = (o << 16) | (v - o * bn);
+      }
+      sp.src()[e + k] = v;
+      sp.coef()[e + k] = cf[n * ss + k0 + k];
+    }
+    e += deg;
+    off[s + 1] = e;
+    ++plan.count;
+    return true;
+  });
+  if (plan.count) atomicMax(sp.listed(), ps + plan.count);
+  plan.w0 = __shfl_sync(0xffffffffu, ps, 0);
+  plan.w1 = __reduce_max_sync(0xffffffffu,
+                              plan.count ? ps + plan.count : 0);
+  if (plan.w1 < plan.w0) plan.w1 = plan.w0;
+  __syncthreads();
+  plan.end = off[*sp.listed()];
+  return plan;
+}
+
+// The step's sums of the listed segments, into sp.sum(): every thread of
+// the block forms a share of the listed products (`val(src)`: the
+// current iterate at a listed source, the rounded product mul of the
+// serial gather), a barrier, then each listed segment is summed by one
+// lane of the warp that owns it, from 0 in list order (the CSR's), the
+// lanes working at once (eight products loaded ahead of their adds).
+// Every thread of a block that lists a segment calls it.
+template <typename T, typename Val>
+__device__ __forceinline__ void lottery_split_sums(
+    const LotterySplit<T>& sp, const SplitPlan& plan, Val val) {
+  T* const prod = sp.prod();
+  for (int e = threadIdx.x; e < plan.end; e += blockDim.x)
+    prod[e] = mul(val(sp.src()[e]), sp.coef()[e]);
+  __syncthreads();
+  const int* const off = sp.off();
+  for (int s = plan.w0 + (threadIdx.x & 31); s < plan.w1; s += 32) {
+    const int k1 = off[s + 1];
+    int k = off[s];
+    T acc = T(0);
+    for (; k + 8 <= k1; k += 8) {
+      T v[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[j] = prod[k + j];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc = acc + v[j];
+    }
+    for (; k < k1; ++k) acc = acc + prod[k];
+    sp.sum()[s] = acc;
+  }
+  __syncwarp();
 }
 
 template <typename T>
@@ -469,9 +687,10 @@ __device__ LotteryResult<T> lottery_fixed_point(
 // the three iterates [3, R N] and `best_d` their best one [R N], copied to
 // the lane's output `best_out` [D, N] at the end; `mv` the wide mix's
 // staging rows, lottery_mix_elems(N, 0, 4) elements (unused under a
-// bound).  `red` is shared scratch of lottery_cluster_red_elems(
-// blockDim.x) elements.  `iter3` and `red` sit at the same offsets in
-// every block's shared memory.
+// bound); `split` the block's split list, lottery_split_bytes(NB)
+// (unused under the wide mix).  `red` is shared scratch of
+// lottery_cluster_red_elems(blockDim.x) elements.  `iter3` and `red` sit
+// at the same offsets in every block's shared memory.
 //
 // Four neighbouring threads share a target row (R = 125 rows at the fine
 // width, so one pass of 500 threads): thread h sums the sources of the
@@ -481,8 +700,8 @@ __device__ LotteryResult<T> lottery_fixed_point(
 template <typename T, int NB>
 __device__ LotteryResult<T> lottery_cluster_loop(
     const LotteryRows<T> rows, const T* Pt, const T* d0l, T* iter3,
-    T* best_d, T* best_out, T* mv, T* red, int D, int N, T tol,
-    int max_iter, int accel_every) {
+    T* best_d, T* best_out, T* mv, unsigned char* split, T* red, int D,
+    int N, T tol, int max_iter, int accel_every) {
   constexpr int TPR = 4;                  // threads per target row
   constexpr int SPT = NB / TPR;           // states each of them sums
   static_assert(NB % TPR == 0, "NB a multiple of 4");
@@ -525,6 +744,11 @@ __device__ LotteryResult<T> lottery_cluster_loop(
     const T v = d0l[r0 * N + l];
     iter3[l] = v; iter3[bn + l] = v; best_d[l] = v;
   }
+  const LotterySplit<T> sp{split};
+  SplitPlan plan{0, 0, 0, 0, 0};
+  if constexpr (NB != 0)
+    plan = lottery_split_build<T, SPT, TPR>(sp, st, rs, se, cf, ss, nrows,
+                                            N, bn, packed);
   const T tiny = Limits<T>::tiny();
   const T big = Limits<T>::big();
   const T lam_max = T(0.995);
@@ -555,6 +779,14 @@ __device__ LotteryResult<T> lottery_cluster_loop(
     const int cb = ic * bn;
     T dl = T(0);
     const int h = tid % TPR;
+    // the listed segments' sums first (their sources packed), then each
+    // row's gather takes them
+    if constexpr (NB != 0)
+      if (plan.end)   // the same in every thread of the block
+        lottery_split_sums(sp, plan, [&](int e) {
+          return peer[e >> 16][cb + (e & 0xffff)];
+        });
+    int c = 0;   // this thread's listed segments met so far
     if constexpr (NB == 0) {
       // the wide mix: the row's sums through its four threads' staging row
       const int pad = lottery_pad(N, 0);
@@ -609,7 +841,13 @@ __device__ LotteryResult<T> lottery_cluster_loop(
           const int* sen = se + n * ss;
           const T* cfn = cf + n * ss;
           const int k1 = st[n * rs + i + 1];
-          for (int k = st[n * rs + i]; k < k1; ++k) {
+          int k = st[n * rs + i];
+          if (k1 - k > kSplitDegree && c < plan.count) {
+            acc = sp.sum()[plan.first + c];
+            ++c;
+            k = k1;
+          }
+          for (; k < k1; ++k) {
             // the source's owner block and its element there
             const int e = sen[k];
             int o, l;

@@ -29,13 +29,15 @@
 //       and one block barrier;
 //   cluster (3) -- the target rows split over a cluster of 8 blocks (the
 //       fine width, D=1000, N=15: 782 KB as one block, 68 KB of iterates
-//       and row starts per block of 8 in f64), each holding its rows'
-//       iterates in its own shared memory and its rows' lottery entries
-//       too when they fit the rest of its share (the split depends on the
-//       policy, so the block counts them on the device; otherwise it reads
-//       them where the wrapper built them).  A source another block owns is
-//       read through distributed shared memory; a plain step is one
-//       cluster barrier;
+//       and row starts and 42 KB of split list per block of 8 in f64),
+//       each holding its rows' iterates in its own shared memory and its
+//       rows' lottery entries too when they fit the rest of its share
+//       (how many its rows hold depends on the policy, so the block counts
+//       them on the device; otherwise it reads them where the wrapper
+//       built them).  A source another block owns is read through
+//       distributed shared memory; a plain step is one cluster barrier;
+//       under a bound each block splits its long lottery segments over
+//       its threads (lottery_device.cuh), the same bits;
 //   global (0) -- one block, the CSR where the wrapper built it and the
 //       iterates in a global scratch, for what a cluster cannot hold
 //       either, and under force_global.
@@ -137,8 +139,9 @@ stationary_lottery_kernel(const int* __restrict__ start,
     ahtt::load_transition(s.Pt, P_g + (size_t)lane * N * N, N, pad);
     const int rn = ahtt::lottery_cluster_rows(D) * N;
     r = ahtt::lottery_cluster_loop<T, NB>(rows, s.Pt, d0l, s.it,
-                                          s.it + 3 * rn, out, s.mv, red, D,
-                                          N, tol, max_iter, accel_every);
+                                          s.it + 3 * rn, out, s.mv, s.split,
+                                          red, D, N, tol, max_iter,
+                                          accel_every);
     if (rank != 0) return;
   } else {
     T* iter3;

@@ -56,9 +56,23 @@ SOURCES = {
     "stationary_lottery_grid_wide": "stationary_lottery_grid_wide.cu",
     "fused_cell_grid_wide": "fused_cell_grid_wide.cu",
 }
+# The cluster loop's split of long lottery segments
+# (``csrc/lottery_device.cuh``, whose kSplit* constants these are, passed
+# to every build as -D flags): a segment (one target row's sources in one
+# labor state) with more than ``LOTTERY_SPLIT_DEGREE`` sources is split
+# over its cluster block; a block lists at most ``LOTTERY_SPLIT_SEGMENTS``
+# of them and ``LOTTERY_SPLIT_ENTRIES`` of their entries, and a segment
+# past either keeps the serial gather.  No bit depends on them; the list's
+# bytes count in each cluster block's share.
+LOTTERY_SPLIT_DEGREE = 16
+LOTTERY_SPLIT_SEGMENTS = 64
+LOTTERY_SPLIT_ENTRIES = 2048
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=true", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC",
+              f"-DAHTT_SPLIT_DEGREE={LOTTERY_SPLIT_DEGREE}",
+              f"-DAHTT_SPLIT_SEGS={LOTTERY_SPLIT_SEGMENTS}",
+              f"-DAHTT_SPLIT_ENTRIES={LOTTERY_SPLIT_ENTRIES}")
 # Shared memory one block may use on an H100 (232,448 bytes), and the part
 # a lane's workspace may take: 1 KB stays for the kernels' static shared
 # arrays.  A workspace above it goes to global memory (same arithmetic).
@@ -764,7 +778,9 @@ def stationary_lottery_grid(idx, weight, P, dist0, tol: float,
     memory; else in global memory (``stationary_lottery_grid_layout``).
     The arithmetic and its order are the same, so the layouts agree
     bitwise.  ``force_global`` takes the global layout at any size (a
-    check of that claim)."""
+    check of that claim).  In the cluster layout each block splits its
+    lane's segments of more than ``LOTTERY_SPLIT_DEGREE`` sources over its
+    threads, with the same bits."""
     dev, dt = dist0.device, dist0.dtype
     C, D, N = dist0.shape
     if idx.shape != dist0.shape or weight.shape != dist0.shape \

@@ -415,13 +415,127 @@ def test_lottery_push_tail_is_bitwise_the_padded_gather(dtype):
 # Byte counts of stationary_lottery_grid.cu at three lanes (lottery_device.
 # cuh: lottery_csr_bytes + lottery_iterate_bytes for one block, with and
 # without the best iterate; lottery_cluster_bytes with no staging for each
-# block of an 8-block cluster; the transition padded to the lane's bound,
-# 8 at N=7, 16 at N=15): (D, N, itemsize) -> (full, no_best, cluster)
+# block of an 8-block cluster, its split list included, 41,744 bytes in
+# f64 and 25,104 in f32; the transition padded to the lane's bound, 8 at
+# N=7, 16 at N=15): (D, N, itemsize) -> (full, no_best, cluster)
 LOTTERY_BYTES = {
-    (500, 7, 8): (210_544, 182_544, 16_416),      # the paper's width
-    (1000, 15, 8): (902_112, 782_112, 69_616),    # the fine width
-    (1000, 15, 4): (541_088, 481_088, 38_592),
+    (500, 7, 8): (210_544, 182_544, 58_160),      # the paper's width
+    (1000, 15, 8): (902_112, 782_112, 111_360),   # the fine width
+    (1000, 15, 4): (541_088, 481_088, 63_696),
 }
+
+
+def _round16(b):
+    return -(-b // 16) * 16
+
+
+def _split_bytes(itemsize):
+    """lottery_device.cuh's lottery_split_bytes, from the limits the build
+    passes it."""
+    return _round16((K.LOTTERY_SPLIT_SEGMENTS + 2 * K.LOTTERY_SPLIT_ENTRIES)
+                    * itemsize
+                    + (K.LOTTERY_SPLIT_ENTRIES + K.LOTTERY_SPLIT_SEGMENTS
+                       + 2) * 4)
+
+
+def _lottery_bytes(D, N, itemsize):
+    """(full, no_best, cluster) as lottery_device.cuh counts them, under
+    a bound on the states (not the wide mix), a cluster block's split list
+    included."""
+    nb = K.lottery_state_bound(N)
+    p = nb * nb * itemsize
+    csr = _round16(p + 2 * D * N * itemsize
+                   + (N * (D + 1) + 2 * D * N) * 4)
+    R = -(-D // 8)
+    cluster = _round16(p + _split_bytes(itemsize) + 4 * R * N * itemsize
+                       + N * (R + 1) * 4)
+    return csr + 4 * D * N * itemsize, csr + 3 * D * N * itemsize, cluster
+
+
+@pytest.mark.parametrize("shape", sorted(LOTTERY_BYTES))
+def test_lottery_bytes_count_the_split_lists(shape):
+    """The byte table above is lottery_device.cuh's count, a cluster
+    block's split list of ``LOTTERY_SPLIT_ENTRIES`` entries included, and
+    the one-block layouts carry none: the list moves no layout at the
+    benchmark's widths (the paper's lane stays in one block's shared
+    memory with its best iterate, the fine lane in the cluster, staging
+    its entries)."""
+    D, N, itemsize = shape
+    full, no_best, cluster = _lottery_bytes(D, N, itemsize)
+    assert (full, no_best, cluster) == LOTTERY_BYTES[shape]
+    sizes = {1: full, 0: no_best}
+    split = _split_bytes(itemsize)
+    assert K._lottery_layout(sizes.__getitem__, False, cluster - split) \
+        == K._lottery_layout(sizes.__getitem__, False, cluster) \
+        == (2 if D == 500 else 3)
+    if D == 1000:   # the stage keeps room for a block's share and more
+        assert K._lottery_stage(cluster, D, N, itemsize) >= 2 * D * N // 8 * 2
+
+
+def test_lottery_split_limits_reach_the_build():
+    """The split's limits have one source: ``ops/kernels.py`` passes its
+    ``LOTTERY_SPLIT_*`` to every build as the -D flags that
+    ``lottery_device.cuh`` requires, so a change of either side reaches
+    the library's digest and its byte counts."""
+    flags = {f for f in K.NVCC_FLAGS if f.startswith("-DAHTT_SPLIT_")}
+    assert flags == {f"-DAHTT_SPLIT_DEGREE={K.LOTTERY_SPLIT_DEGREE}",
+                     f"-DAHTT_SPLIT_SEGS={K.LOTTERY_SPLIT_SEGMENTS}",
+                     f"-DAHTT_SPLIT_ENTRIES={K.LOTTERY_SPLIT_ENTRIES}"}
+    cuh = (K._CSRC / "lottery_device.cuh").read_text()
+    for macro in ("AHTT_SPLIT_DEGREE", "AHTT_SPLIT_SEGS",
+                  "AHTT_SPLIT_ENTRIES"):
+        assert f"= {macro};" in cuh and f"defined({macro})" in cuh
+
+
+def _lottery_lane(N, A, D, crra, rho, r=0.0415):
+    """The lottery CSR starts [N, D+1] of one float64 lane at rate r, its
+    policy solved on the CPU (its plain version)."""
+    from aiyagari_hark_tpu_torch.models import firm
+
+    dt = torch.float64
+    model = th.stack_models([th.build_simple_model(
+        labor_states=N, labor_ar=rho, a_count=A, dist_count=D, dtype=dt,
+        device="cpu")])
+    rr = torch.tensor([r], dtype=dt)
+    R, W = 1.0 + rr, firm.wage_rate(firm.k_to_l_from_r(rr, 0.36, 0.08), 0.36)
+    pol = th.solve_household(R, W, model, 0.96,
+                             torch.tensor([crra], dtype=dt))[0]
+    tr = th.wealth_transition(pol, R, W, model)
+    return K.lottery_csr(tr.idx, tr.weight)[0][0]
+
+
+@pytest.mark.parametrize("N, A, D, crra, rho, engages", [
+    (15, 1000, 1000, 1.0, 0.0, True),      # the fine width's cluster
+    (7, 32, 500, 1.0, 0.0, True),          # Table II, when in a cluster
+    (7, 32, 500, 5.0, 0.9, False),         # every segment under the degree
+])
+def test_lottery_split_lists_fit_their_caps_in_a_cluster(
+        N, A, D, crra, rho, engages):
+    """Near r*, the (crra 1, rho 0) lanes of both widths have segments over
+    ``LOTTERY_SPLIT_DEGREE`` sources (the bottom rows, where low-income
+    states pile their sources), so a cluster block splits them; each of
+    the eight blocks of ceil(D/8) rows fits its list whole, never past its
+    caps.  A (crra 5, rho 0.9) Table II lane has none: it runs the serial
+    gather alone.  The fine lane's blocks also fit their entries in the
+    stage the cluster leaves beside its split list.  (At the paper's width
+    the default layout is one block, which does not split: only a forced
+    cluster takes these lanes there.)"""
+    start = _lottery_lane(N, A, D, crra, rho)
+    deg = start[:, 1:] - start[:, :-1]                  # [N, D]
+    long = deg > K.LOTTERY_SPLIT_DEGREE
+    assert bool(long.any()) == engages
+    rows = -(-D // 8)
+    stage = K._lottery_stage(_lottery_bytes(D, N, 8)[2], D, N, 8)
+    for r0 in range(0, D, rows):
+        blk = deg[:, r0:r0 + rows]
+        segs = long[:, r0:r0 + rows]
+        assert int(segs.sum()) <= K.LOTTERY_SPLIT_SEGMENTS
+        assert int(blk[segs].sum()) <= K.LOTTERY_SPLIT_ENTRIES
+        if D == 1000:
+            assert int(blk.sum()) <= stage
+    if engages:
+        assert int(long.sum()) >= 4 and int(deg.max()) > 4 * \
+            K.LOTTERY_SPLIT_DEGREE
 
 
 @pytest.mark.parametrize("shape, force_global, layout", [
@@ -455,9 +569,9 @@ def test_lottery_cluster_needs_its_fixed_part_to_fit(cluster, layout):
 
 
 @pytest.mark.parametrize("fixed, D, N, itemsize, stage", [
-    (69_616, 1000, 15, 8, 13_484),     # f64: (231424 - 69616) // 12
-    (38_592, 1000, 15, 4, 24_104),     # f32: (231424 - 38592) // 8
-    (17_952, 20, 3, 8, 120),           # a small lane stages all 2 D N
+    (111_360, 1000, 15, 8, 10_005),    # f64: (231424 - 111360) // 12
+    (63_696, 1000, 15, 4, 20_966),     # f32: (231424 - 63696) // 8
+    (59_696, 20, 3, 8, 120),           # a small lane stages all 2 D N
     (K.MAX_WORKSPACE_SHARED_BYTES, 1000, 15, 8, 0),
     (K.MAX_WORKSPACE_SHARED_BYTES + 64, 1000, 15, 8, 0),
 ])
@@ -625,33 +739,33 @@ FUSED_FINE_F64 = dict(   # N=15, A=1000, D=1000, float64
     fused_cell_grid_workspace_bytes=lambda N, A, D, nb, tail, f64, best:
         1_512_872,
     fused_cell_grid_cluster_bytes=lambda N, A, D, nb, tail, f64, stage:
-        max(122_144, 69_616 + 12 * stage),
-    fused_cell_grid_cluster_lottery_bytes=69_616,
+        max(122_144, 111_360 + 12 * stage),
+    fused_cell_grid_cluster_lottery_bytes=111_360,
 )
 
 
 @pytest.mark.parametrize("sizes, tail, force_global, layout, stage", [
-    (FUSED_FINE_F64, False, False, "cluster", 13_484),
+    (FUSED_FINE_F64, False, False, "cluster", 10_005),
     # a tail moves nothing in the choice: the cluster's bytes count it
-    (FUSED_FINE_F64, True, False, "cluster", 13_484),
+    (FUSED_FINE_F64, True, False, "cluster", 10_005),
     (FUSED_FINE_F64, False, True, "global", 0),     # never under force
     # the paper's width fits one block: shared, never the cluster
     (dict(fused_cell_grid_workspace_bytes=lambda *a: 210_544 if a[-1]
-          else 182_544, fused_cell_grid_cluster_bytes=16_416,
-          fused_cell_grid_cluster_lottery_bytes=16_416),
+          else 182_544, fused_cell_grid_cluster_bytes=58_160,
+          fused_cell_grid_cluster_lottery_bytes=58_160),
      False, False, "shared", 0),
     (dict(fused_cell_grid_workspace_bytes=lambda *a: 240_000 if a[-1]
-          else 200_000, fused_cell_grid_cluster_bytes=16_416,
-          fused_cell_grid_cluster_lottery_bytes=16_416),
+          else 200_000, fused_cell_grid_cluster_bytes=58_160,
+          fused_cell_grid_cluster_lottery_bytes=58_160),
      False, False, "shared_best_in_output", 0),
     # the cluster cannot take the lane (~0) or its blocks overflow
     (dict(fused_cell_grid_workspace_bytes=2_000_000,
           fused_cell_grid_cluster_bytes=2 ** 64 - 1,
-          fused_cell_grid_cluster_lottery_bytes=69_616),
+          fused_cell_grid_cluster_lottery_bytes=111_360),
      False, False, "global", 0),
     (dict(fused_cell_grid_workspace_bytes=2_000_000,
           fused_cell_grid_cluster_bytes=K.MAX_WORKSPACE_SHARED_BYTES + 16,
-          fused_cell_grid_cluster_lottery_bytes=69_616),
+          fused_cell_grid_cluster_lottery_bytes=111_360),
      False, False, "global", 0),
 ])
 def test_fused_layout_takes_the_cluster_only_past_one_block(
@@ -671,19 +785,19 @@ def test_fused_layout_takes_the_cluster_only_past_one_block(
 FUSED_FINE_COMPACT_F64 = dict(   # N=15, A=851, D=926, tail, float64
     fused_cell_grid_workspace_bytes=1_339_128,
     fused_cell_grid_cluster_bytes=lambda N, A, D, nb, tail, f64, stage:
-        max(104_448 if tail else 88_448, 64_752 + 12 * stage),
-    fused_cell_grid_cluster_lottery_bytes=64_752,
+        max(104_448 if tail else 88_448, 106_496 + 12 * stage),
+    fused_cell_grid_cluster_lottery_bytes=106_496,
 )
 
 
 @pytest.mark.parametrize("N, sizes, force_global, layout, stage", [
     # the fine compact grid: one block overflows, the tailed cluster fits
-    (15, FUSED_FINE_COMPACT_F64, False, "cluster", 13_889),
+    (15, FUSED_FINE_COMPACT_F64, False, "cluster", 10_410),
     (15, FUSED_FINE_COMPACT_F64, True, "global", 0),
     # Table II's compact lane (N=7, A=28, D=468) fits one block: shared
     (7, dict(fused_cell_grid_workspace_bytes=lambda *a: 197_104 if a[-1]
-             else 170_896, fused_cell_grid_cluster_bytes=15_664,
-             fused_cell_grid_cluster_lottery_bytes=15_664),
+             else 170_896, fused_cell_grid_cluster_bytes=57_408,
+             fused_cell_grid_cluster_lottery_bytes=57_408),
      False, "shared", 0),
     # past 16 labor states no cluster takes the lane (~0): global
     (17, dict(fused_cell_grid_workspace_bytes=lambda *a: 485_632 if a[-1]
